@@ -1,0 +1,443 @@
+#!/usr/bin/env python3
+# chip_smoke.py
+"""Smoke test of the PyTorch/CUDA port (encodermap_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from csrc/, holds each against its plain
+PyTorch version on the card, drives EncoderMap training end to end through
+the kernels (fused route on cube and on periodic dihedral data, general route
+at batch 16384), and checks what comes out. Prints one JSON line per kernel
+set before the last line, the card's name and power limit, and as the last
+line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
+code is non-zero and no result line is printed. Without a CUDA card it exits
+with code 2 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+#: published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
+#: tensor cores, and HBM bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+#: arithmetic per evaluation, transcendentals (pow, sqrt, div) counted as
+#: one operation each: the sketch-map sigmoid (divide, integer power by
+#: squaring, multiply-add, pow, subtract) and s'(r)/r
+SIG_OPS = 10
+DSIG_OPS = 8
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call on the card (CUDA events, after warmup)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations
+    over the f32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def sigmoid_pair_ops(D: int, d: int, periodic: bool, backward: bool) -> int:
+    """Arithmetic per pair of the sigmoid-loss kernels: the component
+    differences (3 per Euclidean component, 6 per min-image one), two
+    guarded square roots, two sigmoids, then the squared difference
+    (forward) or s'(r)/r and the row sums (backward)."""
+    ops = (6 if periodic else 3) * D + 3 * d + 2 + 2 * SIG_OPS
+    return ops + (DSIG_OPS + 2 + 2 * d if backward else 3)
+
+
+def fused_step_ops(dims: list, B: int, d0: int, periodic: bool,
+                   n_params: int) -> int:
+    """Arithmetic of one fused train step: forward, weight-gradient and
+    delta products (2 operations per multiply-add each), the B x B sigmoid
+    loss with its latent gradient, and Adam on every parameter."""
+    macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    dl = min(dims)
+    pair = ((6 if periodic else 3) * d0 + 3 * dl + 2 + 2 * SIG_OPS + DSIG_OPS
+            + 4 + 2 * dl)
+    return 6 * B * macs + B * B * pair + 14 * n_params
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ----------------------------------------------------------------- phases
+def phase_build(_build) -> None:
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"[build] {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc -gencode arch=compute_90a,code=sm_90a)")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def phase_sigmoid(fs, _build) -> dict:
+    """Kernels 2 and 3 against their plain versions at B=16384, d=2."""
+    B, d = 16384, 2
+    params = (4.5, 12, 6, 1, 2, 6)
+    out = {}
+    for D, periodicity in ((3, float("inf")), (4, 2 * math.pi),
+                           (30, 2 * math.pi)):
+        g = torch.Generator(device="cuda").manual_seed(D)
+        if math.isfinite(periodicity):
+            h = (torch.rand((B, D), generator=g, device="cuda") * 2 - 1) * math.pi
+        else:
+            h = torch.rand((B, D), generator=g, device="cuda")
+        l = torch.randn((B, d), generator=g, device="cuda")
+        v_k = fs.sigmoid_loss_fwd(h, l, params, periodicity)
+        v_p = fs.sigmoid_loss_fwd_plain(h, l, params, periodicity)
+        g_k = fs.sigmoid_loss_bwd(h, l, params, periodicity)
+        g_p = fs.sigmoid_loss_bwd_plain(h, l, params, periodicity)
+        torch.cuda.synchronize()
+        f_abs = abs(float(v_k) - float(v_p))
+        f_rel = f_abs / abs(float(v_p))
+        b_abs = float((g_k - g_p).abs().max())
+        b_rel = b_abs / float(g_p.abs().max())
+        ms_f = time_ms(lambda: fs.sigmoid_loss_fwd(h, l, params, periodicity), 5)
+        ms_fp = time_ms(lambda: fs.sigmoid_loss_fwd_plain(h, l, params, periodicity), 3)
+        ms_b = time_ms(lambda: fs.sigmoid_loss_bwd(h, l, params, periodicity), 5)
+        ms_bp = time_ms(lambda: fs.sigmoid_loss_bwd_plain(h, l, params, periodicity), 3)
+        tag = f"D={D} {'periodic' if math.isfinite(periodicity) else 'euclid'}"
+        log(f"[sigmoid {tag}] fwd kernel {float(v_k):.8f} plain {float(v_p):.8f} "
+            f"abs {f_abs:.3e} rel {f_rel:.3e} | {ms_f:.3f} ms (plain {ms_fp:.3f} ms)")
+        log(f"[sigmoid {tag}] bwd max abs {b_abs:.3e} rel-to-max {b_rel:.3e} | "
+            f"{ms_b:.3f} ms (plain {ms_bp:.3f} ms)")
+        # tolerance: f32 sums of 2.7e8 pair terms, and of 16384 terms per
+        # gradient row, taken in another order than torch's
+        check(f_rel <= 1e-5, f"sigmoid fwd {tag}: rel err {f_rel}")
+        check(b_rel <= 1e-4, f"sigmoid bwd {tag}: rel err {b_rel}")
+        periodic = math.isfinite(periodicity)
+        bf = bound_ms(B * B * sigmoid_pair_ops(D, d, periodic, False),
+                      4 * B * (D + d) + 4)
+        bb = bound_ms(B * B * sigmoid_pair_ops(D, d, periodic, True),
+                      4 * B * (D + 2 * d) + 4)
+        out[tag] = dict(fwd=(f_abs, ms_f, ms_fp, bf), bwd=(b_abs, ms_b, ms_bp, bb))
+    return out
+
+
+def phase_router(fs) -> dict:
+    """Forward + backward of the sketch-map loss through the kernels and
+    through the general path (pairwise distances, autograd), from the main
+    configuration's B=256 down to 64 and up to 16384: ``fused_or_reference``
+    takes the kernels at every size on the card. Returns the kernels' and
+    the general path's ms by (D, B)."""
+    params = (4.5, 12, 6, 1, 2, 6)
+    out = {}
+    for D, periodicity in ((3, float("inf")), (4, 2 * math.pi)):
+        for B in (64, 256, 1024, 4096, 16384):
+            g = torch.Generator(device="cuda").manual_seed(B)
+            h = torch.rand((B, D), generator=g, device="cuda")
+            l = torch.randn((B, 2), generator=g, device="cuda")
+
+            def kernels():
+                x = l.detach().requires_grad_(True)
+                fs.fused_sigmoid_loss(h, x, params, periodicity).backward()
+
+            def general():
+                x = l.detach().requires_grad_(True)
+                fs.sigmoid_loss_general(h, x, params, periodicity).backward()
+
+            reps = 20 if B <= 1024 else 3
+            ms_k, ms_g = time_ms(kernels, reps), time_ms(general, reps)
+            log(f"[router D={D} {'periodic' if math.isfinite(periodicity) else 'euclid'} "
+                f"B={B}] fwd+bwd kernels {ms_k:.4f} ms, general path {ms_g:.4f} ms")
+            check(ms_k < ms_g, f"router D={D} B={B}: the general path is faster "
+                  f"than the kernels the router takes on the card")
+            out[D, B] = (ms_k, ms_g)
+    return out
+
+
+def _fused_setup(em, ft, d0: int, periodic: bool, steps: int):
+    from encodermap_tpu_torch.models import sequential as seq
+
+    p = em.Parameters(n_neurons=[128, 128, 2], batch_size=256,
+                      periodicity=2 * math.pi if periodic else float("inf"))
+    gen = torch.Generator().manual_seed(0)
+    params = seq.init_params(gen, p, d0, device="cuda")
+    flat, n_enc = ft.split_params(params)
+    rng = np.random.default_rng(d0)
+    if periodic:
+        data = rng.uniform(-np.pi, np.pi, (125000, d0))
+    else:
+        data = em.create_n_cube(3, points_along_edge=500, seed=0)[0]
+    data = torch.as_tensor(data, dtype=torch.float32, device="cuda")
+    idx = torch.as_tensor(rng.integers(0, len(data), (steps, 256)),
+                          device="cuda")
+    zeros = [torch.zeros_like(t) for t in flat]
+    return p, flat, n_enc, zeros, data, idx
+
+
+def _max_err(a: list, b: list) -> float:
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+
+def _rel_to_max(a: list, b: list) -> float:
+    """Largest error of each tensor relative to its own largest entry."""
+    return max(float((x.double() - y.double()).abs().max() / y.double().abs().max())
+               for x, y in zip(a, b))
+
+
+def phase_fused(em, ft) -> dict:
+    """Kernel 1 against its plain version at [128,128,2], B=256: 5 steps
+    tightly, 100 steps against a float64 run of the plain version, then its
+    time at the main path's 500-step chunk."""
+    out = {}
+    for d0, periodic in ((3, False), (4, True)):
+        tag = "periodic d0=4" if periodic else "cube d0=3"
+        p, flat, n_enc, zeros, data, idx = _fused_setup(em, ft, d0, periodic, 100)
+        hyper = ft.hyper_from(p)
+        kw = dict(n_enc=n_enc, hyper=hyper)
+
+        # 1 step: both take the gradient at the same parameters, so the
+        # moments (0.1 g and 0.001 g^2, g clipped) differ only by the order
+        # of f32 sums: held to 1e-4 of each tensor's largest entry. Adam's
+        # step hides a gradient's scale; these moments show it
+        _, mk, vk, _ = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx[:1], **kw)
+        _, mp, vp, _ = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data, idx[:1],
+                                            **kw)
+        m1 = _rel_to_max(mk + vk, mp + vp)
+        log(f"[fused {tag}] 1 step: moments max rel-to-max {m1:.3e}")
+        check(m1 <= 1e-4, f"fused {tag}: 1-step moments mismatch")
+
+        # 5 steps: f32 sums in another order; Adam divides each gradient by
+        # its own magnitude, so an element whose gradient is near zero can
+        # move by a good part of lr = 1e-3 on a rounding difference: params
+        # are held to a tenth of one step, the losses to 1e-4 relative, the
+        # moments to 1e-3 of each tensor's largest entry, as later gradients
+        # are taken at parameters that already differ
+        pk, mk, vk, met_k = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx[:5], **kw)
+        pp, mp, vp, met_p = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data,
+                                                 idx[:5], **kw)
+        e5, r5 = _max_err(pk, pp), _rel_err(met_k, met_p)
+        m5 = _rel_to_max(mk + vk, mp + vp)
+        log(f"[fused {tag}] 5 steps: params max abs {e5:.3e}, moments max rel-to-max "
+            f"{m5:.3e}, metrics max rel {r5:.3e}")
+        check(e5 <= 1e-4 and r5 <= 1e-4 and m5 <= 1e-3, f"fused {tag}: 5-step mismatch")
+
+        # 100 steps: training on periodic data amplifies rounding (the plain
+        # version in f32 and in f64 part by ~1e-2), so the kernel is held to
+        # three times the plain f32 version's own distance from f64, plus
+        # the 5-step bounds
+        pk, mk, vk, met_k = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx, **kw)
+        pp, mp, vp, met_p = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data,
+                                                 idx, **kw)
+        f64 = [t.double() for t in flat]
+        z64 = [t.double() for t in zeros]
+        p64, m64, v64, met_64 = ft.fused_chunk_plain(f64, z64, z64, 0.0,
+                                                     data.double(), idx, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(met_k).all()), f"fused {tag}: non-finite metrics")
+        err_p = _max_err(pk, pp)
+        err_m = _max_err(mk + vk, mp + vp)
+        k64, p32 = _max_err(pk, p64), _max_err(pp, p64)
+        mk64, mp64 = _rel_err(met_k, met_64), _rel_err(met_p, met_64)
+        ok64, op64 = _rel_to_max(mk + vk, m64 + v64), _rel_to_max(mp + vp, m64 + v64)
+        log(f"[fused {tag}] 100 steps: kernel-plain params {err_p:.3e}, moments "
+            f"{err_m:.3e}; vs f64: kernel params {k64:.3e} moments {ok64:.3e} "
+            f"metrics {mk64:.3e}, plain params {p32:.3e} moments {op64:.3e} "
+            f"metrics {mp64:.3e}; loss "
+            f"{float(met_k[0, 4]):.4f} -> {float(met_k[-1, 4]):.4f}")
+        check(k64 <= 3 * p32 + 1e-4 and mk64 <= 3 * mp64 + 1e-4
+              and ok64 <= 3 * op64 + 1e-3,
+              f"fused {tag}: further from f64 than 3x the plain version")
+
+        p, flat, n_enc, zeros, data, idx = _fused_setup(em, ft, d0, periodic, 500)
+        ms = time_ms(lambda: ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx,
+                                            n_enc=n_enc, hyper=hyper), 3)
+        ms_p = time_ms(lambda: ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data,
+                                                    idx, n_enc=n_enc, hyper=hyper),
+                       1, warmup=0)
+        dims = [flat[0].shape[0]] + [w.shape[1] for w in flat[:len(flat) // 2]]
+        n_params = sum(t.numel() for t in flat)
+        ops = 500 * fused_step_ops(dims, 256, d0, periodic, n_params)
+        nbytes = 4 * (6 * n_params + data.numel() + 500 * 5) + 8 * idx.numel()
+        b = bound_ms(ops, nbytes)
+        log(f"[fused {tag}] 500-step chunk: {ms:.3f} ms ({1e3 * ms / 500:.2f} us/step), "
+            f"plain {ms_p:.1f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        out[tag] = (err_p, ms, ms_p, b)
+    return out
+
+
+def phase_train(em, _build, run_dir: Path, periodic: bool) -> int:
+    """EncoderMap.train() on the fused route; returns kernel-1 launches."""
+    tag = "periodic 4-dihedral" if periodic else "cube"
+    if periodic:
+        data = np.random.default_rng(0).uniform(
+            -np.pi, np.pi, (125000, 4)).astype(np.float32)
+    else:
+        data = em.create_n_cube(3, points_along_edge=500, seed=0)[0]
+    p = em.Parameters(main_path=str(run_dir), n_neurons=[128, 128, 2],
+                      batch_size=256, steps_per_scan=500, n_steps=2000, seed=0,
+                      periodicity=2 * math.pi if periodic else float("inf"))
+    emap = em.EncoderMap(p, data)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    hist = emap.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts["fused_train"]
+    check(launches > 0, f"train {tag}: the fused kernel was not launched")
+    first, last = hist["loss"][:500].mean(), hist["loss"][-500:].mean()
+    log(f"[train {tag}] fused launches {launches}, loss first chunk mean "
+        f"{first:.4f} -> last {last:.4f}, train() {wall:.2f} s")
+    check(last < first, f"train {tag}: loss did not fall")
+
+    latent = emap.encode(data[:4096])
+    recon = emap.decode(latent)
+    gen = emap.generate(latent[:16])
+    check(latent.shape == (4096, 2) and recon.shape == (4096, data.shape[1]),
+          f"train {tag}: shapes")
+    check(all(np.isfinite(x).all() for x in (latent, recon, gen)),
+          f"train {tag}: non-finite encode/decode/generate")
+    again = em.EncoderMap.from_checkpoint(run_dir, train_data=data)
+    check(np.array_equal(again.encode(data[:4096]), latent),
+          f"train {tag}: reloaded checkpoint encodes differently")
+
+    trainer = emap._get_trainer()
+    dev_data = emap._device_data()
+    state = emap.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, metrics = trainer(state, dev_data)
+    float(metrics["loss"][-1])
+    dt = time.perf_counter() - t0
+    log(f"[train {tag}] checkpoint reload encodes identically; "
+        f"{3 * 500 * 256 / dt:.0f} samples/s over 3 chunks of 500 steps")
+    return launches
+
+
+def phase_general(em, _build, run_dir: Path, sig_ms: float) -> dict:
+    """The general (autograd) route at B=16384: the sigmoid-loss kernels.
+    ``sig_ms`` is their forward + backward time at this shape (router
+    phase), to split the chunk's step time."""
+    data = em.create_n_cube(3, points_along_edge=500, seed=0)[0]
+    p = em.Parameters(main_path=str(run_dir), n_neurons=[128, 128, 2],
+                      batch_size=16384, steps_per_scan=3, n_steps=6, seed=0,
+                      periodicity=float("inf"), fused_trainer=False)
+    emap = em.EncoderMap(p, data)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    hist = emap.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    check(counts.get("sigmoid_fwd", 0) > 0 and counts.get("sigmoid_bwd", 0) > 0,
+          f"general route: sigmoid kernels not launched ({counts})")
+    check(counts.get("fused_train", 0) == 0, "general route ran the fused kernel")
+    check(bool(np.isfinite(hist["loss"]).all()), "general route: non-finite loss")
+    log(f"[general] launches {counts}, loss {hist['loss'][0]:.4f} -> "
+        f"{hist['loss'][-1]:.4f}, {6 * 16384 / wall:.0f} samples/s "
+        f"(train() wall clock, 6 steps)")
+
+    trainer, dev_data = emap._get_trainer(), emap._device_data()
+    state = emap.state
+
+    def chunk():
+        nonlocal state
+        state, _ = trainer(state, dev_data)
+
+    ms = time_ms(chunk, 2) / 3
+    log(f"[general] chunk trainer alone: {ms:.3f} ms/step (CUDA events, 2 chunks "
+        f"of 3 steps), of which sigmoid kernels fwd+bwd {sig_ms:.3f} ms, the rest "
+        f"(MLP, autograd, clip + Adam, batch draw) {ms - sig_ms:.3f} ms")
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device; none is available",
+              file=sys.stderr)
+        return 2
+    import encodermap_tpu_torch as em
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    log(f"[device] {kind}, {torch.cuda.device_count()} visible; nvidia-smi: {smi}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phase_build(_build)
+    sig = phase_sigmoid(fs, _build)
+    router = phase_router(fs)
+    fused = phase_fused(em, ft)
+
+    runs = ROOT / "build" / "chip_smoke_runs"
+    runs.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+        launches = phase_train(em, _build, Path(tmp) / "cube", periodic=False)
+        launches += phase_train(em, _build, Path(tmp) / "dihedral", periodic=True)
+        general = phase_general(em, _build, Path(tmp) / "general",
+                                router[3, 16384][0])
+
+    main_sig = sig["D=3 euclid"]
+    err1, ms1, ms1p, b1 = fused["cube d0=3"]
+    kernels = [
+        dict(name="fused_train", route="cuda",
+             source="encodermap_tpu_torch/csrc/fused_train.cu",
+             replaces="encodermap_tpu/ops/pallas_train.py:303",
+             launches=launches, max_abs_err=err1, ms=ms1, plain_ms=ms1p,
+             bound_ms=b1[0], bound_by=b1[1], library_ms=None),
+    ]
+    for name, key, line, count in (("sigmoid_fwd", "fwd", 120, "sigmoid_fwd"),
+                                   ("sigmoid_bwd", "bwd", 139, "sigmoid_bwd")):
+        err, ms, ms_p, b = main_sig[key]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="encodermap_tpu_torch/csrc/sigmoid_loss.cu",
+            replaces=f"encodermap_tpu/ops/pallas_sigmoid.py:{line}",
+            launches=general[count], max_abs_err=err, ms=ms, plain_ms=ms_p,
+            bound_ms=b[0], bound_by=b[1], library_ms=None))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+# encodermap_tpu_torch/__init__.py
+"""EncoderMap in PyTorch, with its kernels hand-written in CUDA for Hopper.
+
+A port of ``encodermap_tpu`` (JAX on a TPU), which stays in the repository
+as its reference; each module names its counterpart there. This first slice
+is plain EncoderMap training: parameters, the MLP autoencoder, the losses,
+the chunked trainer with its fused train kernel and sigmoid-loss kernels,
+checkpoints that load in both packages, and encode/decode/generate.
+
+Entry points run on the CUDA card unless ``device="cpu"`` is passed::
+
+    import encodermap_tpu_torch as em
+    data, _ = em.create_n_cube(3, points_along_edge=500, seed=0)
+    p = em.Parameters(periodicity=float("inf"), n_steps=2000)
+    emap = em.EncoderMap(p, data)          # device="cpu" without a card
+    emap.train()
+    latent = emap.encode(data)
+"""
+
+from .losses import (
+    auto_loss,
+    center_loss,
+    distance_loss,
+    loss_combinator,
+    reconstruction_loss,
+    regularization_loss,
+    sigmoid_loss,
+)
+from .misc.misc import create_n_cube
+from .models.sequential import SequentialModel, gen_sequential_model
+from .parameters import ADCParameters, Parameters
+from .train.autoencoder import Autoencoder, DihedralEncoderMap, EncoderMap
+from .train.callbacks import (
+    Callback,
+    CheckpointSaver,
+    EarlyStop,
+    NaNInterrupt,
+    ProgressBar,
+)
+
+__all__ = [
+    "Parameters",
+    "ADCParameters",
+    "create_n_cube",
+    "SequentialModel",
+    "gen_sequential_model",
+    "Autoencoder",
+    "EncoderMap",
+    "DihedralEncoderMap",
+    "Callback",
+    "CheckpointSaver",
+    "EarlyStop",
+    "NaNInterrupt",
+    "ProgressBar",
+    "auto_loss",
+    "center_loss",
+    "distance_loss",
+    "loss_combinator",
+    "reconstruction_loss",
+    "regularization_loss",
+    "sigmoid_loss",
+]

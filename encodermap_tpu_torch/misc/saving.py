@@ -1,0 +1,230 @@
+# encodermap_tpu_torch/misc/saving.py
+"""Checkpoints: parameter trees <-> npz files, plus the parameters.json
+sidecar.
+
+Counterpart of ``encodermap_tpu/misc/saving.py``, in the same format so that
+a checkpoint written by either package loads in the other:
+
+* ``saved_model_{step}.npz``: the parameters, keyed by JSON-encoded tree
+  paths (``[["d", "encoder"], ["s", 0], ["d", "kernel"]]``);
+* ``saved_model_{step}.opt.npz``: the Adam state, under the paths of the JAX
+  package's optax ``chain(clip, adam)`` state (``count``, then ``mu`` and
+  ``nu`` in JAX's leaf order, which the JAX loader relies on);
+* ``saved_model_{step}.rng.npy``: the batch RNG, two uint32 words;
+* ``parameters.json`` with ``current_training_step`` updated.
+
+No pickle anywhere. Reference ``.keras`` checkpoints are not read yet.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import warnings
+from pathlib import Path
+from typing import Any, Optional, Union
+
+import numpy as np
+import torch
+
+__all__ = [
+    "save_pytree",
+    "load_pytree",
+    "save_checkpoint",
+    "latest_checkpoint",
+    "load_checkpoint",
+    "load_checkpoint_rng",
+    "load_opt_state",
+]
+
+#: path of the optax Adam state inside ``(clip_state, (adam_state, lr_state))``
+_ADAM_PATH = [["s", 1], ["s", 0]]
+
+
+def _to_numpy(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _flatten(tree: Any, prefix: list) -> dict[str, np.ndarray]:
+    """Path-keyed leaves in JAX's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], prefix + [["d", k]]))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, prefix + [["s", i]]))
+        return out
+    return {json.dumps(prefix): _to_numpy(tree)}
+
+
+def save_pytree(tree: Any, path: Union[str, Path]) -> str:
+    """Save a dict/list tree of tensors or arrays to one .npz file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **_flatten(tree, []))
+    return str(path)
+
+
+def _opt_tree(opt_state: dict) -> dict[str, np.ndarray]:
+    """The Adam state under the JAX package's optax paths and leaf order."""
+    out = {json.dumps(_ADAM_PATH + [["a", "count"]]):
+           np.asarray(opt_state["count"], np.int32)}
+    for name in ("mu", "nu"):
+        out.update(_flatten(opt_state[name], _ADAM_PATH + [["a", name]]))
+    return out
+
+
+def load_pytree(path: Union[str, Path]) -> Any:
+    """Rebuild the nested dict/list structure from a .npz written by
+    :func:`save_pytree` (or by the JAX package); values are numpy arrays."""
+    data = np.load(path, allow_pickle=False)
+    entries = [(json.loads(key), data[key]) for key in data.files]
+    if not entries:
+        return {}
+
+    def make_container(elem):
+        return [] if elem[0] == "s" else {}
+
+    def ensure(container, elem, nxt_container):
+        kind, key = elem
+        if kind in ("d", "a"):
+            if key not in container:
+                container[key] = nxt_container
+            return container[key]
+        if kind == "s":
+            while len(container) <= key:
+                container.append(None)
+            if container[key] is None:
+                container[key] = nxt_container
+            return container[key]
+        raise ValueError(f"unsupported path element {elem}")
+
+    root = make_container(entries[0][0][0]) if entries[0][0] else None
+    for path_elems, value in entries:
+        if not path_elems:
+            return value
+        node = root
+        for i, elem in enumerate(path_elems[:-1]):
+            node = ensure(node, elem, make_container(path_elems[i + 1]))
+        kind, key = path_elems[-1]
+        if kind == "s":
+            while len(node) <= key:
+                node.append(None)
+        node[key] = value
+    return root
+
+
+def save_checkpoint(
+    main_path: Union[str, Path],
+    params: Any,
+    step: int,
+    opt_state: Optional[dict] = None,
+    parameters: Any = None,
+    prefix: str = "saved_model",
+    rng: Any = None,
+) -> str:
+    """Write ``{prefix}_{step}.npz`` (+ ``.opt.npz``, ``.rng.npy``) and
+    refresh ``parameters.json`` with the current step."""
+    main_path = Path(main_path)
+    main_path.mkdir(parents=True, exist_ok=True)
+    ckpt = main_path / f"{prefix}_{step}.npz"
+    save_pytree(params, ckpt)
+    if opt_state is not None:
+        np.savez(main_path / f"{prefix}_{step}.opt.npz", **_opt_tree(opt_state))
+    if rng is not None:
+        np.save(main_path / f"{prefix}_{step}.rng.npy",
+                np.asarray(rng, np.uint32))
+    if parameters is not None:
+        parameters.current_training_step = int(step)
+        parameters.save(main_path / "parameters.json", backup=False)
+    return str(ckpt)
+
+
+def latest_checkpoint(main_path: Union[str, Path],
+                      prefix: str = "saved_model"
+                      ) -> Optional[tuple[str, int]]:
+    """The newest ``{prefix}_{step}.npz`` by step number, or None."""
+    best = None
+    pattern = re.compile(rf"{re.escape(prefix)}_(\d+)\.npz$")
+    for f in Path(main_path).glob(f"{prefix}_*.npz"):
+        m = pattern.match(f.name)
+        if m and (best is None or int(m.group(1)) > best[1]):
+            best = (str(f), int(m.group(1)))
+    return best
+
+
+def _sibling(path: Path, suffix: str) -> Optional[Path]:
+    """The ``.opt.npz``/``.rng.npy`` sibling of a ``*.npz`` checkpoint."""
+    if path.suffix == ".npz" and not str(path).endswith(suffix):
+        return Path(str(path)[: -len(".npz")] + suffix)
+    warnings.warn(
+        f"checkpoint {path.name!r} does not end in '.npz'; its "
+        f"'{suffix}' sidecar (optimizer state / RNG) cannot be derived and "
+        f"will not be restored. Keep the saved_model_N.npz naming to resume "
+        f"exactly.", stacklevel=3)
+    return None
+
+
+def load_checkpoint(path: Union[str, Path], prefix: str = "saved_model",
+                    n_encoder: Optional[int] = None
+                    ) -> tuple[Any, Optional[str], int]:
+    """``(params, opt_npz_path_or_None, step)`` from a checkpoint file or
+    the newest checkpoint in a directory; params are numpy arrays."""
+    del n_encoder  # only reference .keras files need it
+    path = Path(path)
+    if path.suffix == ".keras":
+        raise NotImplementedError(
+            "reference .keras checkpoints are not read by encodermap_tpu_torch "
+            "yet (keras import is a later slice of the port)")
+    if path.is_dir():
+        found = latest_checkpoint(path, prefix)
+        if found is None:
+            raise FileNotFoundError(f"no {prefix}_*.npz checkpoints in {path}")
+        path = Path(found[0])
+    m = re.match(rf"{re.escape(prefix)}_(\d+)\.npz$", path.name)
+    step = int(m.group(1)) if m else 0
+    params = load_pytree(path)
+    opt_file = _sibling(path, ".opt.npz")
+    opt = str(opt_file) if opt_file is not None and opt_file.exists() else None
+    return params, opt, step
+
+
+def load_opt_state(path: Union[str, Path]) -> dict:
+    """The Adam state ``{"count": int, "mu": tree, "nu": tree}`` (numpy
+    leaves) of an ``.opt.npz`` written by either package."""
+    tree = load_pytree(path)
+
+    def find(node):
+        if isinstance(node, dict) and "mu" in node:
+            return node
+        if isinstance(node, (list, tuple)):
+            for v in node:
+                found = find(v)
+                if found is not None:
+                    return found
+        return None
+
+    adam = find(tree)
+    if adam is None:
+        raise ValueError(f"{path} holds no Adam state (mu/nu)")
+    return {"count": int(adam["count"]), "mu": adam["mu"], "nu": adam["nu"]}
+
+
+def load_checkpoint_rng(path: Union[str, Path], prefix: str = "saved_model"
+                        ) -> Optional[np.ndarray]:
+    """The RNG stored next to a checkpoint, or None."""
+    path = Path(path)
+    if path.is_dir():
+        found = latest_checkpoint(path, prefix)
+        if found is None:
+            return None
+        path = Path(found[0])
+    rng_file = _sibling(path, ".rng.npy")
+    if rng_file is not None and rng_file.exists():
+        return np.load(rng_file)
+    return None

@@ -1,0 +1,394 @@
+# encodermap_tpu_torch/ops/fused_train.py
+"""A chunk of EncoderMap optimizer steps in one hand-written CUDA kernel.
+
+Counterpart of ``encodermap_tpu/ops/pallas_train.py``. The kernel
+(``csrc/fused_train.cu``) replaces ``pallas_train.py::_fused_kernel``: each
+of its steps gathers a batch from the device-resident dataset, runs the tanh
+MLP autoencoder forward, the four EncoderMap losses (auto mean_abs, center,
+L2, sketch-map sigmoid over all B x B pairs; min-image where periodic), the
+hand-derived backward pass of :func:`hand_step`, the clip to +-1 and Adam,
+and writes one metrics row.
+
+Its plain version is :func:`fused_chunk_plain`: :func:`hand_step` plus
+:func:`_adam_update`, looped over the steps. :func:`fused_chunk` launches the
+kernel for CUDA tensors and runs the plain version only for CPU tensors.
+
+Unlike the TPU kernel, the fold-out uses the native ``atan2``: the TPU needed
+the polynomial ``_poly_atan2`` only because Mosaic has no atan2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from math import pi
+from typing import Optional
+
+import torch
+
+from . import _build
+from .distances import dsig_over_r, pairwise_dist, sig_value
+
+__all__ = [
+    "hand_step",
+    "fused_chunk",
+    "fused_chunk_plain",
+    "fused_trainer_available",
+    "config_covered",
+    "split_params",
+    "join_params",
+    "make_fused_trainer",
+]
+
+_LIB = "fused_train"
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_build.register(_LIB, [
+    ("em_fused_train_workspace", [_I, _I, _P, _I, _I], ctypes.c_longlong),
+    ("em_fused_train", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _D, _P,
+                        _P, _P, _P]),
+])
+
+METRIC_NAMES = ("auto_loss", "center_loss", "regularization_loss",
+                "distance_loss", "loss")
+
+
+def _pairdist2(x: torch.Tensor) -> torch.Tensor:
+    """(B, B) squared distances, one (B, B) plane per column."""
+    return pairwise_dist(x, squared=True, method="direct")[0]
+
+
+def hand_step(enc_w: list, enc_b: list, dec_w: list, dec_b: list,
+              batch: torch.Tensor, *, dist_sig_parameters: tuple,
+              auto_cost_scale: float, center_cost_scale: float,
+              l2_reg_constant: float, distance_cost_scale: float,
+              periodicity: float = float("inf")):
+    """Forward pass and hand-derived gradients of the fused configuration.
+
+    ``periodicity < inf`` adds the dihedral handling: sin/cos fold-in, atan2
+    fold-out, min-image auto loss and min-image pairwise distances on the
+    high-D side of the sigmoid loss.
+
+    Returns ``(grads_enc_w, grads_enc_b, grads_dec_w, grads_dec_b,
+    metrics)`` with ``metrics = (auto, center, reg, dist, total)``.
+    """
+    B, d0 = batch.shape
+    periodic = periodicity != float("inf")
+
+    if periodic:
+        xs = batch if periodicity == 2 * pi else batch / periodicity * 2 * pi
+        x0 = torch.cat([torch.sin(xs), torch.cos(xs)], dim=1)
+    else:
+        x0 = batch
+    acts_e = [x0]
+    n_enc = len(enc_w)
+    for i in range(n_enc):
+        z = acts_e[-1] @ enc_w[i] + enc_b[i]
+        acts_e.append(torch.tanh(z) if i < n_enc - 1 else z)
+    lat = acts_e[-1]
+    acts_d = [lat]
+    n_dec = len(dec_w)
+    for i in range(n_dec):
+        z = acts_d[-1] @ dec_w[i] + dec_b[i]
+        acts_d.append(torch.tanh(z) if i < n_dec - 1 else z)
+    dec_out = acts_d[-1]
+    if periodic:
+        s_half, c_half = dec_out[:, :d0], dec_out[:, d0:]
+        norm2 = s_half * s_half + c_half * c_half
+        out = torch.atan2(s_half, c_half)
+        if periodicity != 2 * pi:
+            out = out / (2 * pi) * periodicity
+    else:
+        out = dec_out
+
+    # losses
+    if periodic:
+        ad = torch.abs(batch - out)
+        one = torch.ones_like(ad)
+        flip = torch.where(ad <= periodicity - ad, one, -one)
+        auto = auto_cost_scale * torch.mean(torch.minimum(ad, periodicity - ad))
+    else:
+        diff = batch - out
+        auto = auto_cost_scale * torch.mean(torch.abs(diff))
+    center = center_cost_scale * torch.mean(torch.square(lat))
+    reg = l2_reg_constant * (sum(torch.sum(torch.square(w)) for w in enc_w)
+                             + sum(torch.sum(torch.square(w)) for w in dec_w))
+    sig_h, a_h, b_h, sig_l, a_l, b_l = dist_sig_parameters
+    if periodic:
+        dh2 = torch.zeros((B, B), dtype=batch.dtype, device=batch.device)
+        for k in range(d0):
+            col = batch[:, k]
+            dd = torch.abs(col[:, None] - col[None, :])
+            dd = torch.minimum(dd, periodicity - dd)
+            dh2 = dh2 + dd * dd
+    else:
+        dh2 = _pairdist2(batch)
+    dl2 = _pairdist2(lat)
+    mask_h = (dh2 == 0.0).to(batch.dtype)
+    dh = torch.sqrt(dh2 + mask_h * 1e-16) * (1.0 - mask_h)
+    mask_l = (dl2 == 0.0).to(lat.dtype)
+    dl = torch.sqrt(dl2 + mask_l * 1e-16) * (1.0 - mask_l)
+    sdiff = sig_value(dl, sig_l, a_l, b_l) - sig_value(dh, sig_h, a_h, b_h)
+    dist = distance_cost_scale * torch.mean(torch.square(sdiff))
+    total = auto + center + reg + dist
+
+    # backward: auto (mean_abs)
+    if periodic:
+        g_out = (auto_cost_scale / (B * d0)) * flip * torch.sign(out - batch)
+        if periodicity != 2 * pi:
+            g_out = g_out / (2 * pi) * periodicity
+        g_out = torch.cat([g_out * c_half / norm2, -g_out * s_half / norm2],
+                          dim=1)
+    else:
+        g_out = (-auto_cost_scale / (B * d0)) * torch.sign(diff)
+
+    g_dec_w, g_dec_b = [None] * n_dec, [None] * n_dec
+    delta = g_out
+    for i in range(n_dec - 1, -1, -1):
+        if i < n_dec - 1:
+            a = acts_d[i + 1]
+            delta = delta * (1.0 - a * a)
+        g_dec_w[i] = acts_d[i].T @ delta
+        g_dec_b[i] = torch.sum(delta, dim=0)
+        delta = delta @ dec_w[i].T
+    g_lat = delta + (2.0 * center_cost_scale / lat.numel()) * lat
+
+    # sigmoid distance: dL/dlat_k = (4*scale/B^2) sum_j sdiff_kj
+    #   * s_l'(D_kj)/D_kj * (lat_k - lat_j)
+    M = (4.0 * distance_cost_scale / (B * B)) * sdiff * dsig_over_r(
+        dl2, dl, sig_l, a_l, b_l)
+    g_lat = g_lat + torch.sum(M, dim=1)[:, None] * lat - M @ lat
+
+    g_enc_w, g_enc_b = [None] * n_enc, [None] * n_enc
+    delta = g_lat
+    for i in range(n_enc - 1, -1, -1):
+        if i < n_enc - 1:
+            a = acts_e[i + 1]
+            delta = delta * (1.0 - a * a)
+        g_enc_w[i] = acts_e[i].T @ delta
+        g_enc_b[i] = torch.sum(delta, dim=0)
+        if i > 0:
+            delta = delta @ enc_w[i].T
+
+    for i in range(n_enc):
+        g_enc_w[i] = g_enc_w[i] + 2.0 * l2_reg_constant * enc_w[i]
+    for i in range(n_dec):
+        g_dec_w[i] = g_dec_w[i] + 2.0 * l2_reg_constant * dec_w[i]
+    metrics = torch.stack([auto, center, reg, dist, total])
+    return g_enc_w, g_enc_b, g_dec_w, g_dec_b, metrics
+
+
+def fused_trainer_available(p, params, input_dim: int = 0) -> bool:
+    """Whether the fused kernel covers this configuration: parameters on the
+    card (where the JAX package asks for the TPU backend) and
+    :func:`config_covered`."""
+    if params is None or params["encoder"][0]["kernel"].device.type != "cuda":
+        return False
+    return config_covered(p, params, input_dim)
+
+
+def config_covered(p, params, input_dim: int = 0) -> bool:
+    """The kernel's configuration gates, whatever the device: no densifier,
+    a decoder (the output layer may be the narrowest, and then the whole
+    stack is the encoder), at most 32 input columns, tanh hidden layers with
+    linear ends, mean_abs auto cost, float32, and every loss scale set."""
+    if params is not None and ("densifier" in params or not params["decoder"]):
+        return False
+    if input_dim > 32:
+        return False
+    acts = list(p.activation_functions)
+    if acts[0] != "" or any(a != "tanh" for a in acts[1:-1]) or acts[-1] != "":
+        return False
+    if p.auto_cost_variant != "mean_abs":
+        return False
+    if p.compute_dtype != "float32":
+        return False
+    return all(scale is not None for scale in
+               (p.auto_cost_scale, p.center_cost_scale, p.distance_cost_scale))
+
+
+def _adam_update(p_, m, v, g, t, lr, b1=0.9, b2=0.999, eps=1e-7, clip=1.0):
+    """``optax.chain(clip(1), adam(lr, eps=1e-7))`` on one tensor at step
+    ``t`` (1-based); returns ``(p, m, v)``."""
+    g = torch.clamp(g, -clip, clip)
+    m = b1 * m + (1.0 - b1) * g
+    v = b2 * v + (1.0 - b2) * g * g
+    mhat = m / (1.0 - b1 ** t)
+    vhat = v / (1.0 - b2 ** t)
+    return p_ - lr * mhat / (torch.sqrt(vhat) + eps), m, v
+
+
+def split_params(params: dict) -> tuple[list, int]:
+    """Flatten ``{"encoder": [...], "decoder": [...]}`` into the kernel
+    layout ``[enc_w..., dec_w..., enc_b(1,d)..., dec_b(1,d)...]``."""
+    enc, dec = params["encoder"], params["decoder"]
+    flat = ([l["kernel"] for l in enc] + [l["kernel"] for l in dec]
+            + [l["bias"][None, :] for l in enc]
+            + [l["bias"][None, :] for l in dec])
+    return flat, len(enc)
+
+
+def join_params(flat: list, n_enc: int, n_dec: int) -> dict:
+    """Inverse of :func:`split_params`."""
+    n_w = n_enc + n_dec
+    ws, bs = flat[:n_w], flat[n_w:]
+    enc = [{"kernel": ws[i], "bias": bs[i][0]} for i in range(n_enc)]
+    dec = [{"kernel": ws[n_enc + i], "bias": bs[n_enc + i][0]}
+           for i in range(n_dec)]
+    return {"encoder": enc, "decoder": dec}
+
+
+def _hand_step_args(flat: list, n_enc: int):
+    n_w = len(flat) // 2
+    ws, bs = flat[:n_w], [b[0] for b in flat[n_w:]]
+    return ws[:n_enc], bs[:n_enc], ws[n_enc:], bs[n_enc:]
+
+
+def fused_chunk_plain(params_flat: list, mu_flat: list, nu_flat: list,
+                      step0: float, data: torch.Tensor, idx: torch.Tensor, *,
+                      n_enc: int, hyper: dict):
+    """Plain version of the kernel: ``steps = idx.shape[0]`` steps of
+    :func:`hand_step` and :func:`_adam_update` on batches ``data[idx[s]]``.
+    Returns ``(params_flat, mu_flat, nu_flat, metrics (steps, 5))``."""
+    p, m, v = list(params_flat), list(mu_flat), list(nu_flat)
+    rows = []
+    for s in range(idx.shape[0]):
+        gew, geb, gdw, gdb, met = hand_step(
+            *_hand_step_args(p, n_enc), data[idx[s]], **hyper["losses"])
+        grads = (list(gew) + list(gdw) + [g[None, :] for g in geb]
+                 + [g[None, :] for g in gdb])
+        t = float(step0) + s + 1.0
+        for i in range(len(p)):
+            p[i], m[i], v[i] = _adam_update(p[i], m[i], v[i], grads[i], t,
+                                            hyper["learning_rate"])
+        rows.append(met)
+    return p, m, v, torch.stack(rows)
+
+
+def _pack(tensors: list) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors]).to(torch.float32)
+
+
+def _unpack(flat: torch.Tensor, like: list) -> list:
+    out, at = [], 0
+    for t in like:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out
+
+
+def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
+                step0: float, data: torch.Tensor, idx: torch.Tensor, *,
+                n_enc: int, hyper: dict):
+    """Run ``steps = idx.shape[0]`` optimizer steps in one kernel launch.
+
+    Args:
+        params_flat: ``[enc_w..., dec_w..., enc_b(1,d)..., dec_b(1,d)...]``.
+        mu_flat / nu_flat: Adam moments, same layout.
+        step0: optimizer steps taken before this chunk.
+        data: ``(n, d0)`` float32 dataset on the device.
+        idx: ``(steps, B)`` int64 batch indices into ``data``.
+        n_enc: number of encoder layers.
+        hyper: ``{"learning_rate": float, "losses": {hand_step kwargs}}``.
+
+    Returns:
+        ``(params_flat, mu_flat, nu_flat, metrics (steps, 5))``.
+    """
+    if data.device.type == "cpu":
+        return fused_chunk_plain(params_flat, mu_flat, nu_flat, step0, data,
+                                 idx, n_enc=n_enc, hyper=hyper)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    if data.dtype != torch.float32 or data.ndim != 2:
+        raise TypeError("fused_chunk takes a float32 (n, d0) dataset")
+    if idx.ndim != 2:
+        raise ValueError(f"idx must be (steps, B), got {tuple(idx.shape)}")
+    tensors = list(params_flat) + list(mu_flat) + list(nu_flat)
+    if any(t.device != data.device or t.dtype != torch.float32
+           for t in tensors):
+        raise ValueError("parameters and moments must be float32 on "
+                         f"{data.device}")
+    steps, B = idx.shape
+    n_w = len(params_flat) // 2
+    dims = [params_flat[0].shape[0]] + [w.shape[1] for w in params_flat[:n_w]]
+    n_dec = n_w - n_enc
+    periodic = hyper["losses"].get("periodicity", float("inf")) != float("inf")
+    d_in = 2 * data.shape[1] if periodic else data.shape[1]
+    if dims[0] != d_in or dims[-1] != d_in or not 0 < n_enc < n_w:
+        raise ValueError(f"layer widths {dims} (n_enc={n_enc}) do not fit "
+                         f"{data.shape[1]}-column {'periodic ' * periodic}data")
+    lib = _build.load_library(_LIB)
+    dims_c = (ctypes.c_int * len(dims))(*dims)
+    ws = lib.em_fused_train_workspace(n_enc, n_dec, dims_c, B, data.shape[1])
+    if ws < 0:
+        raise ValueError(f"{n_w} layers exceed the kernel's layer table")
+    losses = hyper["losses"]
+    hyper_c = (ctypes.c_double * 12)(
+        losses["auto_cost_scale"], losses["center_cost_scale"],
+        losses["l2_reg_constant"], losses["distance_cost_scale"],
+        *[float(x) for x in losses["dist_sig_parameters"]],
+        losses.get("periodicity", float("inf")), hyper["learning_rate"])
+    params = _pack(params_flat)
+    mu = _pack(mu_flat)
+    nu = _pack(nu_flat)
+    data = data.contiguous()
+    idx = idx.to(device=data.device, dtype=torch.int64).contiguous()
+    scratch = torch.empty(ws, dtype=torch.float32, device=data.device)
+    metrics = torch.empty((steps, 5), dtype=torch.float32, device=data.device)
+    err = lib.em_fused_train(
+        params.data_ptr(), mu.data_ptr(), nu.data_ptr(), data.data_ptr(),
+        idx.data_ptr(), steps, B, data.shape[1], n_enc, n_dec, dims_c,
+        float(step0), hyper_c, metrics.data_ptr(), scratch.data_ptr(),
+        _build.stream_ptr())
+    _build.launch_counts["fused_train"] += 1
+    _build.check_cuda(lib, err, "em_fused_train")
+    return (_unpack(params, params_flat), _unpack(mu, mu_flat),
+            _unpack(nu, nu_flat), metrics)
+
+
+def hyper_from(p) -> dict:
+    """The kernel's hyper-parameters from a :class:`Parameters`."""
+    return dict(
+        learning_rate=p.learning_rate,
+        losses=dict(
+            dist_sig_parameters=tuple(p.dist_sig_parameters),
+            auto_cost_scale=float(p.auto_cost_scale),
+            center_cost_scale=float(p.center_cost_scale),
+            l2_reg_constant=float(p.l2_reg_constant),
+            distance_cost_scale=float(p.distance_cost_scale),
+            periodicity=float(p.periodicity),
+        ),
+    )
+
+
+def make_fused_trainer(p, steps_per_scan: int, batch_size: int):
+    """A drop-in replacement for ``make_scan_trainer`` for the fused
+    configuration: ``(state, data, idx=None) -> (state, metrics)`` running
+    the whole chunk in one kernel launch. ``idx`` injects the ``(steps, B)``
+    batch indices; without it they are drawn from ``state.rng`` as the
+    general trainer draws them. The Adam state keeps the general route's
+    ``{"count", "mu", "nu"}`` layout, so checkpoints interchange."""
+    from ..train.core import draw_indices
+
+    hyper = hyper_from(p)
+
+    def chunk(state, data, idx: Optional[torch.Tensor] = None):
+        if idx is None:
+            idx, rng = draw_indices(state.rng, data.shape[0],
+                                    (steps_per_scan, batch_size), data.device)
+        else:
+            rng = state.rng
+        flat, n_enc = split_params(state.params)
+        n_dec = len(state.params["decoder"])
+        opt = state.opt_state
+        new_flat, new_mu, new_nu, metrics = fused_chunk(
+            flat, split_params(opt["mu"])[0], split_params(opt["nu"])[0],
+            float(opt["count"]), data, idx, n_enc=n_enc, hyper=hyper)
+        steps = idx.shape[0]
+        new_opt = {"count": opt["count"] + steps,
+                   "mu": join_params(new_mu, n_enc, n_dec),
+                   "nu": join_params(new_nu, n_enc, n_dec)}
+        new_state = state.replace(params=join_params(new_flat, n_enc, n_dec),
+                                  opt_state=new_opt, rng=rng,
+                                  step=state.step + steps)
+        return new_state, {k: metrics[:, i] for i, k in enumerate(METRIC_NAMES)}
+
+    return chunk

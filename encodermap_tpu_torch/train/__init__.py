@@ -1,0 +1,11 @@
+# encodermap_tpu_torch/train/__init__.py
+"""Training of the port: the chunked trainer, callbacks and the autoencoder
+classes (counterpart of ``encodermap_tpu/train``)."""
+
+from .autoencoder import Autoencoder, DihedralEncoderMap, EncoderMap
+from .callbacks import Callback, CheckpointSaver, EarlyStop, NaNInterrupt, ProgressBar
+from .core import TrainState, make_optimizer, make_scan_trainer
+
+__all__ = ["Autoencoder", "EncoderMap", "DihedralEncoderMap", "Callback",
+           "CheckpointSaver", "EarlyStop", "NaNInterrupt", "ProgressBar",
+           "TrainState", "make_optimizer", "make_scan_trainer"]

@@ -1,0 +1,480 @@
+# encodermap_tpu_torch/train/autoencoder.py
+"""User-facing autoencoders: Autoencoder, EncoderMap, DihedralEncoderMap.
+
+Counterpart of ``encodermap_tpu/train/autoencoder.py`` (after the
+reference's ``autoencoder/autoencoder.py:573-1400``): ``train()``,
+``encode()``, ``decode()``, ``generate()``, ``save()`` and
+``from_checkpoint()``, hypercube fallback data, exact ``n_steps``
+accounting, callbacks at chunk granularity.
+
+The dataset lives on the device. A chunk of ``steps_per_scan`` steps runs
+either through the fused train kernel (``ops/fused_train.py``, one launch
+per chunk) where :meth:`EncoderMap._maybe_fused_trainer` allows it, or
+through the general route: one autograd step per batch, the sketch-map loss
+through the sigmoid-loss kernels at large batch. Entry points run on the
+card (``device=None`` means ``"cuda"``) unless the caller asks for the CPU.
+
+Not ported yet: multi-GPU meshes (``mesh_shape``), streaming training,
+TensorBoard output, images, and ``DihedralEncoderMap.generate`` onto a
+topology.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Iterator, Optional, Union
+
+import numpy as np
+import torch
+
+from .. import losses as L
+from ..device import resolve_device
+from ..misc.misc import create_n_cube
+from ..misc.saving import (
+    load_checkpoint,
+    load_checkpoint_rng,
+    load_opt_state,
+    save_checkpoint,
+)
+from ..misc.summaries import MetricsWriter
+from ..models import sequential as seq
+from ..parameters import Parameters
+from .callbacks import Callback, CheckpointSaver, NaNInterrupt, ProgressBar
+from .core import (
+    TrainState,
+    make_optimizer,
+    make_scan_trainer,
+    seed_rng,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+
+__all__ = ["Autoencoder", "EncoderMap", "DihedralEncoderMap"]
+
+
+def _tree_to_device(tree: Any, device: torch.device) -> Any:
+    """float32 tensors on ``device`` from a tree of arrays or tensors."""
+    def one(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.tensor(np.asarray(x, np.float32))
+        return x.to(device=device, dtype=torch.float32)
+
+    return tree_map(one, tree)
+
+
+class Autoencoder:
+    """Base autoencoder: auto + center + regularization losses.
+
+    Args:
+        parameters: a :class:`Parameters` instance (defaults if None).
+        train_data: ``(n_samples, n_features)`` array; None generates the
+            hypercube toy data, as the reference does.
+        model_params: initial ``{"encoder", "decoder"}`` parameters (numpy
+            arrays or tensors), e.g. weights carried over from the JAX
+            package with :func:`encodermap_tpu_torch.convert.params_from_numpy`.
+        read_only: write nothing to ``main_path``.
+        sparse: expect NaN-padded inputs (adds a trainable densifier).
+        learning_rate_schedule: callable ``step -> lr`` replacing the
+            constant ``p.learning_rate`` (general route only).
+        device: where to train; None means ``"cuda"`` and raises without a
+            card (pass ``device="cpu"`` to train on the CPU).
+    """
+
+    def __init__(self, parameters: Optional[Parameters] = None,
+                 train_data: Optional[np.ndarray] = None,
+                 model_params: Optional[dict] = None, read_only: bool = False,
+                 sparse: bool = False, learning_rate_schedule=None,
+                 device: Any = None) -> None:
+        self.device = resolve_device(device)
+        self.p = parameters if parameters is not None else Parameters()
+        if self.p.mesh_shape:
+            raise NotImplementedError(
+                "mesh_shape (multi-device training) is not ported to "
+                "encodermap_tpu_torch yet; leave it None")
+        self._validate_model_api("sequential")
+        self._lr_schedule = learning_rate_schedule
+        self.read_only = read_only
+        self.sparse = sparse
+        self._metrics_writer: Optional[MetricsWriter] = None
+        self.history: dict = {}
+
+        if train_data is None:
+            train_data, _ = create_n_cube(seed=self.p.seed)
+            self.p.using_hypercube = True
+        train_data = np.asarray(train_data, np.float32)
+        self._nan_mask = np.isnan(train_data)
+        if self._nan_mask.any():
+            self.sparse = True
+        self.train_data = train_data
+        self.input_dim = train_data.shape[1]
+
+        if not read_only:
+            Path(self.p.main_path).mkdir(parents=True, exist_ok=True)
+            self.p.save(Path(self.p.main_path) / "parameters.json")
+
+        seed = self.p.seed if self.p.seed is not None else 0
+        if model_params is None:
+            gen = torch.Generator().manual_seed(int(seed))
+            model_params = seq.init_params(gen, self.p, self.input_dim,
+                                           sparse=self.sparse)
+        model_params = _tree_to_device(model_params, self.device)
+        self.optimizer = make_optimizer(
+            self._lr_schedule if self._lr_schedule is not None
+            else self.p.learning_rate)
+        self.state = TrainState.create(model_params, self.optimizer,
+                                       seed_rng(seed),
+                                       step=self.p.current_training_step)
+        self._trainer: dict = {}
+        self.callbacks: list[Callback] = []
+        self.custom_losses: list = []
+        self.custom_metrics: list = []
+
+    # ------------------------------------------------------------ extensions
+    def add_callback(self, callback: Callback) -> None:
+        """Append a :class:`Callback` dispatched at chunk granularity."""
+        self.callbacks.append(callback)
+
+    def add_loss(self, loss_fn, name: Optional[str] = None) -> None:
+        """Add a custom loss ``fn(params, batch) -> 0-d tensor`` to the
+        total (general route only)."""
+        self.custom_losses.append(
+            (name or getattr(loss_fn, "__name__", "custom_loss"), loss_fn))
+        self._trainer = {}
+
+    def add_metric(self, metric_fn, name: Optional[str] = None) -> None:
+        """Log ``fn(params, batch) -> 0-d tensor`` every step, without a
+        gradient (general route only)."""
+        self.custom_metrics.append(
+            (name or getattr(metric_fn, "__name__", "custom_metric"),
+             metric_fn))
+        self._trainer = {}
+
+    def _validate_model_api(self, expected: str) -> None:
+        api = getattr(self.p, "model_api", expected)
+        if api == expected:
+            return
+        if api == "custom":
+            raise NotImplementedError("No custom API currently supported")
+        if api in ("sequential", "functional"):
+            raise ValueError(f"{type(self).__name__} uses the {expected!r} "
+                             f"model api; p.model_api={api!r} belongs to the "
+                             f"{'ADC' if api == 'functional' else 'sequential'}"
+                             f" family")
+        raise ValueError(f"p.model_api must be 'sequential', 'functional' or "
+                         f"'custom', got {api!r}")
+
+    # ----------------------------------------------------------- persistence
+    def save(self, step: Optional[int] = None) -> Optional[str]:
+        """Checkpoint parameters, Adam state, RNG and step
+        (``autoencoder.py:1197``); nothing when read-only."""
+        if self.read_only:
+            return None
+        step = self.state.step if step is None else int(step)
+        return save_checkpoint(self.p.main_path, self.state.params, step,
+                               opt_state=self.state.opt_state,
+                               parameters=self.p, rng=self.state.rng)
+
+    @classmethod
+    def _load_checkpoint_checked(cls, ckpt_path: Path,
+                                 use_previous_model: bool):
+        """``(p, model_params, opt_npz, step, directory)`` of a checkpoint,
+        checking its step against parameters.json."""
+        directory = ckpt_path if ckpt_path.is_dir() else ckpt_path.parent
+        p = Parameters.from_file(directory / "parameters.json")
+        model_params, opt_npz, step = load_checkpoint(
+            ckpt_path, n_encoder=len(p.n_neurons))
+        if step != p.current_training_step and not use_previous_model:
+            raise ValueError(
+                f"Checkpoint step {step} disagrees with parameters.json "
+                f"({p.current_training_step}). Pass use_previous_model=True "
+                f"to load this intermediate checkpoint anyway.")
+        return p, model_params, opt_npz, step, directory
+
+    def _restore_checkpoint_state(self, step: int, opt_npz, ckpt_path
+                                  ) -> None:
+        """Adopt step, Adam state and RNG from a checkpoint."""
+        self.state = self.state.replace(step=int(step))
+        if opt_npz is not None:
+            opt = load_opt_state(opt_npz)
+            self.state = self.state.replace(opt_state={
+                "count": opt["count"],
+                "mu": _tree_to_device(opt["mu"], self.device),
+                "nu": _tree_to_device(opt["nu"], self.device)})
+        rng = load_checkpoint_rng(ckpt_path)
+        if rng is not None:
+            self.state = self.state.replace(rng=np.asarray(rng, np.uint32))
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_path: Union[str, Path],
+                        train_data: Optional[np.ndarray] = None,
+                        sparse: bool = False,
+                        use_previous_model: bool = False,
+                        **kwargs: Any) -> "Autoencoder":
+        """Rebuild from a checkpoint directory or file, written by either
+        package (``autoencoder.py:889-931``). ``kwargs`` go to the
+        constructor (e.g. ``device``)."""
+        ckpt_path = Path(checkpoint_path)
+        p, model_params, opt_npz, step, directory = (
+            cls._load_checkpoint_checked(ckpt_path, use_previous_model))
+        if train_data is None and not p.using_hypercube:
+            raise ValueError(
+                f"The model in {directory} was trained on user data "
+                f"(using_hypercube=False). Pass that data via "
+                f"from_checkpoint(..., train_data=...) to reload it.")
+        out = cls(parameters=p, train_data=train_data,
+                  model_params=model_params, sparse=sparse, **kwargs)
+        out._restore_checkpoint_state(step, opt_npz, ckpt_path)
+        return out
+
+    @property
+    def model_params(self) -> dict:
+        """The current parameter tree."""
+        return self.state.params
+
+    # ---------------------------------------------------------------- losses
+    def _loss_terms(self, params: dict, batch: torch.Tensor) -> dict:
+        """All loss contributions for one batch; subclasses extend."""
+        p = self.p
+        batch = seq.densify(params, batch)
+        latent = seq.encode(params, p, batch)
+        out = seq.decode(params, p, latent)
+        return {
+            "auto_loss": L.auto_loss(batch, out, p),
+            "center_loss": L.center_loss(latent, p),
+            "regularization_loss": L.regularization_loss(
+                seq.regularization_sum(params), p),
+        }
+
+    def _make_train_step(self):
+        """One optimizer step ``(state, batch) -> (state, metrics)`` by
+        autograd: the general route."""
+
+        def train_step(state: TrainState, batch: torch.Tensor):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(state.params)]
+            params = tree_unflatten(state.params, leaves)
+            terms = self._loss_terms(params, batch)
+            terms.update({name: fn(params, batch)
+                          for name, fn in self.custom_losses})
+            loss = torch.zeros((), dtype=torch.float32, device=batch.device)
+            for v in terms.values():
+                loss = loss + v
+            grads = torch.autograd.grad(loss, leaves)
+            metrics = {k: v.detach() for k, v in terms.items()}
+            metrics["loss"] = loss.detach()
+            if self._lr_schedule is not None:
+                metrics["learning_rate"] = torch.tensor(
+                    self.optimizer.lr_at(state.opt_state["count"]),
+                    dtype=torch.float32, device=batch.device)
+            with torch.no_grad():
+                new_params, opt_state = self.optimizer.update(
+                    tree_unflatten(state.params, list(grads)),
+                    state.opt_state, state.params)
+                metrics.update({name: fn(new_params, batch).detach()
+                                for name, fn in self.custom_metrics})
+            return (state.replace(params=new_params, opt_state=opt_state,
+                                  step=state.step + 1), metrics)
+
+        return train_step
+
+    def _maybe_fused_trainer(self, steps: int):
+        """Subclasses may provide the fused kernel for their config."""
+        return None
+
+    def _get_trainer(self, steps: Optional[int] = None):
+        """The chunk trainer for ``steps`` steps (cached)."""
+        if steps is None:
+            steps = max(1, min(self.p.steps_per_scan, self.p.n_steps))
+        if steps not in self._trainer:
+            trainer = self._maybe_fused_trainer(steps)
+            if trainer is None:
+                trainer = make_scan_trainer(
+                    self._make_train_step(), self.p.batch_size, steps,
+                    full_batch=not getattr(self.p, "batched", True))
+            self._trainer[steps] = trainer
+        return self._trainer[steps]
+
+    def _device_data(self) -> torch.Tensor:
+        data = self.train_data
+        if self._nan_mask.any():
+            data = np.nan_to_num(data, nan=0.0)
+        return torch.as_tensor(data, dtype=torch.float32, device=self.device)
+
+    # -------------------------------------------------------------- training
+    def _setup_callbacks(self) -> list:
+        cbs: list = [ProgressBar(self.p.n_steps), NaNInterrupt()]
+        if not self.read_only:
+            cbs.append(CheckpointSaver(self, self.p.checkpoint_step))
+        return cbs + self.callbacks
+
+    def close(self) -> None:
+        """Close the metrics log."""
+        if self._metrics_writer is not None:
+            self._metrics_writer.close()
+
+    def train(self, index_stream: Optional[Iterator] = None) -> dict:
+        """Run ``n_steps - current_training_step`` optimizer steps.
+
+        ``index_stream`` optionally supplies each chunk's ``(steps, B)``
+        batch indices (arrays or tensors) instead of the trainer's own draw,
+        e.g. the indices another implementation drew. Returns the metric
+        history (dict of per-step arrays) and, as the reference does,
+        persists parameters and a final checkpoint.
+        """
+        if self.p.training not in ("auto", "custom"):
+            raise ValueError(
+                f"Parameter `training` has to be one of 'custom', 'auto'. "
+                f"You supplied {self.p.training!r}.")
+        start = self.state.step
+        remaining = self.p.n_steps - start
+        if remaining <= 0:
+            print(f"This model has already been trained for {start} steps. "
+                  f"Increase p.n_steps to train further.")
+            return self.history
+
+        sps = max(1, min(self.p.steps_per_scan, self.p.n_steps))
+        data = self._device_data()
+        cbs = self._setup_callbacks()
+        if not self.read_only:
+            self.close()
+            self._metrics_writer = MetricsWriter(
+                self.p.main_path, tensorboard=self.p.tensorboard)
+        for cb in cbs:
+            cb.on_train_begin(self)
+
+        history: dict[str, list] = {}
+        stop = nan_stop = False
+        done = 0
+        while done < remaining and not stop:
+            first_step = self.state.step
+            # the final chunk shrinks to the remainder: never past n_steps
+            chunk = min(sps, remaining - done)
+            idx = None
+            if index_stream is not None:
+                idx = np.asarray(next(index_stream), np.int64)
+                if (idx.shape[0] != chunk or idx.min() < 0
+                        or idx.max() >= len(data)):
+                    raise ValueError(
+                        f"index_stream gave {idx.shape} indices in "
+                        f"[{idx.min()}, {idx.max()}]; this chunk needs "
+                        f"{chunk} rows in [0, {len(data)})")
+                idx = torch.from_numpy(idx).to(self.device)
+            self.state, metrics = self._get_trainer(chunk)(self.state, data,
+                                                           idx)
+            metrics = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+            n = len(next(iter(metrics.values())))
+            for k, v in metrics.items():
+                history.setdefault(k, []).append(v)
+            if self._metrics_writer is not None:
+                stride = max(1, self.p.summary_step)
+                for i in range(n):
+                    step_i = first_step + i + 1
+                    if step_i % stride == 0:
+                        self._metrics_writer.write_scalars(
+                            step_i, {k: v[i] for k, v in metrics.items()})
+            for cb in cbs:
+                if cb.on_chunk_end(first_step, metrics) is False:
+                    stop = True
+                    nan_stop = isinstance(cb, NaNInterrupt)
+                    break
+            done += n
+
+        for cb in cbs:
+            cb.on_train_end(self)
+        self.history = {k: np.concatenate(v) for k, v in history.items()}
+        if nan_stop:
+            print("Not persisting the diverged state; the newest on-disk "
+                  "checkpoint remains the last finite one.")
+        else:
+            self.p.current_training_step = self.state.step
+            if not self.read_only:
+                self.p.save(Path(self.p.main_path) / "parameters.json")
+                self.save()
+        self.close()
+        self._metrics_writer = None
+        return self.history
+
+    # ------------------------------------------------------------- inference
+    def _batched_apply(self, fn, data, max_batch: int = 8192) -> np.ndarray:
+        data = np.asarray(data, np.float32)
+        single = data.ndim == 1
+        if single:
+            data = data[None]
+        outs = []
+        with torch.no_grad():
+            for i in range(0, len(data), max_batch):
+                x = torch.as_tensor(data[i:i + max_batch], device=self.device)
+                outs.append(fn(x).cpu().numpy())
+        out = np.concatenate(outs, axis=0)
+        return out[0] if single else out
+
+    def encode(self, data: Optional[np.ndarray] = None) -> np.ndarray:
+        """Project data to the latent space (``autoencoder.py:1110``)."""
+        if data is None:
+            data = self.train_data
+        params = self.state.params
+        return self._batched_apply(
+            lambda x: seq.encode(params, self.p, seq.densify(params, x)), data)
+
+    def decode(self, latent: np.ndarray) -> np.ndarray:
+        """Decode latent points back to input space (``autoencoder.py:1147``)."""
+        params = self.state.params
+        return self._batched_apply(lambda z: seq.decode(params, self.p, z),
+                                   latent)
+
+    def generate(self, latent: np.ndarray) -> np.ndarray:
+        """Alias of :meth:`decode` for the base class (``autoencoder.py:1177``)."""
+        return self.decode(latent)
+
+
+class EncoderMap(Autoencoder):
+    """Adds the sketch-map sigmoid distance loss
+    (reference: ``autoencoder.py:1232-1307``)."""
+
+    def _loss_terms(self, params: dict, batch: torch.Tensor) -> dict:
+        terms = super()._loss_terms(params, batch)
+        batch = seq.densify(params, batch)
+        latent = seq.encode(params, self.p, batch)
+        terms["distance_loss"] = L.distance_loss(batch, latent, self.p)
+        return terms
+
+    def _maybe_fused_trainer(self, steps: int):
+        """The fused train kernel for eligible configurations: the flag on,
+        batched sampling, no densifier or user extensions, a constant lr,
+        EncoderMap's own loss stack, and :func:`fused_trainer_available`
+        (parameters on the card, input dim, activations, cost variant,
+        dtype). ``mesh_shape`` is refused at construction, since the port
+        trains on one device."""
+        from ..ops.fused_train import fused_trainer_available, make_fused_trainer
+
+        if not getattr(self.p, "fused_trainer", True):
+            return None
+        if not getattr(self.p, "batched", True):
+            return None
+        if (self.sparse or "densifier" in self.state.params
+                or self.custom_losses or self.custom_metrics
+                or self._lr_schedule is not None):
+            return None
+        if type(self)._loss_terms is not EncoderMap._loss_terms:
+            return None
+        if not fused_trainer_available(self.p, self.state.params,
+                                       self.input_dim):
+            return None
+        return make_fused_trainer(self.p, steps, self.p.batch_size)
+
+
+class DihedralEncoderMap(EncoderMap):
+    """EncoderMap over backbone dihedrals (reference
+    ``autoencoder.py:1310-1400``). Its ``generate`` returns the decoded
+    dihedrals; rotating a topology into them waits for the data slice."""
+
+    def generate(self, latent: np.ndarray, top: Any = None) -> Any:
+        """Decode latent points to dihedrals. ``top`` (a topology to rotate
+        into them) is not supported yet and raises."""
+        if top is not None:
+            raise NotImplementedError(
+                "DihedralEncoderMap.generate(top=...) needs the data and "
+                "backmapping layer, which is slice 3 of the port; call it "
+                "with top=None for the raw dihedrals")
+        return self.decode(np.asarray(latent, np.float32))

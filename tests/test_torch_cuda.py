@@ -1,0 +1,156 @@
+# tests/test_torch_cuda.py
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These tests need a CUDA card and skip without one. They import neither JAX
+nor the JAX package, so they run on a GPU machine that has neither; there,
+skip the JAX-based conftest too:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the kernels sum in another order than torch (and in double for
+the forward loss's last pass), so values agree to 1e-5 relative and latent
+gradients to 1e-4 relative to their largest entry; five fused train steps
+agree to a tenth of one Adam step (1e-4) in the parameters, since Adam
+divides each gradient by its magnitude, and to 1e-3 of each moment tensor's
+largest entry in the Adam moments, whose later gradients are taken at
+parameters that already differ by that much."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+SIG = [(4.5, 12, 6, 1, 2, 6), (4.5, 6.0, 10.0, 1.0, 3.0, 7.0)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _hl(B, D, d, periodic, seed):
+    g = torch.Generator().manual_seed(seed)
+    h = (torch.rand((B, D), generator=g) * 2 - 1) * math.pi if periodic else \
+        torch.randn((B, D), generator=g)
+    l = torch.randn((B, d), generator=g)
+    h[1], l[1] = h[0], l[0]  # a duplicate point
+    l[5] = l[4]  # same latent point, different inputs
+    return h, l
+
+
+@pytest.mark.parametrize("params", SIG, ids=["a_l=2", "a_l=3"])
+@pytest.mark.parametrize("B,D,d,periodicity", [
+    (1000, 7, 2, float("inf")), (1000, 7, 2, 2 * math.pi),
+    (777, 40, 3, 2 * math.pi), (300, 3, 6, float("inf"))])
+def test_sigmoid_kernels_match_plain(cuda, params, B, D, d, periodicity):
+    """Ragged batch sizes, widths over one 16-column chunk, latent dims over
+    one 4-component group."""
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+
+    h, l = (t.to(cuda) for t in _hl(B, D, d, math.isfinite(periodicity), B + D))
+    v_k = fs.sigmoid_loss_fwd(h, l, params, periodicity)
+    v_p = fs.sigmoid_loss_fwd_plain(h, l, params, periodicity)
+    g_k = fs.sigmoid_loss_bwd(h, l, params, periodicity)
+    g_p = fs.sigmoid_loss_bwd_plain(h, l, params, periodicity)
+    assert abs(float(v_k) - float(v_p)) <= 1e-5 * abs(float(v_p))
+    assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
+
+
+def test_sigmoid_autograd_through_kernels(cuda):
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+
+    h, l = (t.to(cuda) for t in _hl(2048, 5, 2, False, 1))
+    h.requires_grad_(True)
+    l.requires_grad_(True)
+    before = dict(_build.launch_counts)
+    loss = 3.0 * fs.fused_sigmoid_loss(h, l, SIG[0], float("inf"))
+    loss.backward()
+    assert _build.launch_counts["sigmoid_fwd"] == before.get("sigmoid_fwd", 0) + 1
+    assert _build.launch_counts["sigmoid_bwd"] == before.get("sigmoid_bwd", 0) + 1
+    ref = 3.0 * fs.sigmoid_loss_bwd_plain(h.detach(), l.detach(), SIG[0], float("inf"))
+    assert float((l.grad - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert h.grad is None
+
+
+def test_router_takes_kernels_unless_h_needs_a_gradient(cuda):
+    """On the card the kernels run at any batch size; an ``h`` that needs a
+    gradient (which the kernels do not give) keeps the general path."""
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+
+    h, l = (t.to(cuda) for t in _hl(256, 3, 2, False, 3))
+    before = _build.launch_counts["sigmoid_fwd"]
+    v_k = fs.fused_or_reference(h, l, SIG[0], float("inf"))
+    assert _build.launch_counts["sigmoid_fwd"] == before + 1
+    v_g = fs.fused_or_reference(h.requires_grad_(True), l, SIG[0], float("inf"))
+    assert _build.launch_counts["sigmoid_fwd"] == before + 1
+    assert abs(float(v_k) - float(v_g.detach())) <= 1e-5 * abs(float(v_g.detach()))
+
+
+def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+
+    h, l = (t.to(cuda) for t in _hl(64, 3, 2, False, 2))
+    with pytest.raises(TypeError):
+        fs.sigmoid_loss_fwd(h.double(), l.double(), SIG[0], float("inf"))
+    with pytest.raises(ValueError):
+        fs.sigmoid_loss_fwd(h, l.cpu(), SIG[0], float("inf"))
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+@pytest.mark.parametrize("n_neurons,d0,B", [([32, 16, 2], 3, 50),
+                                            ([16, 12, 10], 11, 300)],
+                         ids=["2-d latent", "10-d latent"])
+def test_fused_train_kernel_matches_plain(cuda, periodic, n_neurons, d0, B):
+    """Ragged batch sizes, and a latent wider than the kernel's 8-component
+    pass."""
+    import encodermap_tpu_torch as em
+    from encodermap_tpu_torch.models import sequential as seq
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    p = em.Parameters(n_neurons=n_neurons, batch_size=B,
+                      activation_functions=[""] + ["tanh"] * (len(n_neurons) - 1) + [""],
+                      periodicity=2 * math.pi if periodic else float("inf"))
+    params = seq.init_params(torch.Generator().manual_seed(0), p, d0, device=cuda)
+    flat, n_enc = ft.split_params(params)
+    rng = np.random.default_rng(0)
+    data = torch.tensor(rng.uniform(-np.pi, np.pi, (500, d0)), dtype=torch.float32,
+                        device=cuda)
+    idx = torch.tensor(rng.integers(0, 500, (5, B)), device=cuda)
+    z = [torch.zeros_like(t) for t in flat]
+    kw = dict(n_enc=n_enc, hyper=ft.hyper_from(p))
+    kp, km, kv, kmet = ft.fused_chunk(flat, z, z, 3.0, data, idx, **kw)
+    pp, pm, pv, pmet = ft.fused_chunk_plain(flat, z, z, 3.0, data, idx, **kw)
+    for a, b in zip(kp, pp):
+        assert float((a - b).abs().max()) <= 1e-4
+    # the moments are linear in the gradients (Adam's step is not: it
+    # hides a gradient's scale), so they are held relative to their own
+    # largest entry
+    for a, b in zip(km + kv, pm + pv):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    assert float(((kmet - pmet).abs() / pmet.abs()).max()) <= 1e-4
+
+
+def test_encodermap_trains_through_fused_kernel(cuda, tmp_path):
+    import encodermap_tpu_torch as em
+    from encodermap_tpu_torch.ops import _build
+
+    data = em.create_n_cube(3, points_along_edge=100, seed=0)[0]
+    p = em.Parameters(main_path=str(tmp_path), n_neurons=[64, 64, 2],
+                      periodicity=float("inf"), n_steps=400, steps_per_scan=200,
+                      seed=0)
+    emap = em.EncoderMap(p, data)
+    before = _build.launch_counts["fused_train"]
+    hist = emap.train()
+    assert _build.launch_counts["fused_train"] == before + 2
+    assert hist["loss"][-50:].mean() < hist["loss"][:50].mean()
+    again = em.EncoderMap.from_checkpoint(tmp_path, train_data=data)
+    assert np.array_equal(again.encode(data), emap.encode(data))
