@@ -5,9 +5,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version on the card, drives EncoderMap training end to end through
-the kernels (fused route on cube and on periodic dihedral data, general route
-at batch 16384), and checks what comes out. Prints one JSON line per kernel
+PyTorch version on the card (both fused train kernels, the cluster kernel
+and the grid kernel, at the main configuration, and the grid kernel where
+the router sends it, at fused batch 1024), drives EncoderMap training end to
+end through the kernels (fused route on cube and on periodic dihedral data,
+general route at batch 16384), and checks what comes out. Prints one JSON line per kernel
 set before the last line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed. Without a CUDA card it exits
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -99,6 +102,19 @@ def check(cond: bool, what: str) -> None:
 
 
 # ----------------------------------------------------------------- phases
+def sass_sizes(_build, name: str) -> dict:
+    """Machine instructions per kernel of a built library (cuobjdump beside
+    nvcc), 16 bytes each: a step's code has to stay under the SM's
+    instruction cache (scripts/cluster_microbench.cu)."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        return {}
+    text = subprocess.run([str(cuobjdump), "-sass", str(_build._library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {part.split()[0]: len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", part, re.M))
+            for part in text.split("Function : ")[1:]}
+
+
 def phase_build(_build) -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -108,6 +124,11 @@ def phase_build(_build) -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    sizes = sass_sizes(_build, "fused_train_cluster")
+    for kernel, n in sizes.items():
+        log(f"[build] {kernel}: {n} instructions, {16 * n / 1024:.0f} KB of code")
+    if not sizes:
+        log("[build] code size: not measured (no cuobjdump beside nvcc)")
 
 
 def phase_sigmoid(fs, _build) -> dict:
@@ -186,10 +207,10 @@ def phase_router(fs) -> dict:
     return out
 
 
-def _fused_setup(em, ft, d0: int, periodic: bool, steps: int):
+def _fused_setup(em, ft, d0: int, periodic: bool, steps: int, B: int = 256):
     from encodermap_tpu_torch.models import sequential as seq
 
-    p = em.Parameters(n_neurons=[128, 128, 2], batch_size=256,
+    p = em.Parameters(n_neurons=[128, 128, 2], batch_size=B,
                       periodicity=2 * math.pi if periodic else float("inf"))
     gen = torch.Generator().manual_seed(0)
     params = seq.init_params(gen, p, d0, device="cuda")
@@ -200,7 +221,7 @@ def _fused_setup(em, ft, d0: int, periodic: bool, steps: int):
     else:
         data = em.create_n_cube(3, points_along_edge=500, seed=0)[0]
     data = torch.as_tensor(data, dtype=torch.float32, device="cuda")
-    idx = torch.as_tensor(rng.integers(0, len(data), (steps, 256)),
+    idx = torch.as_tensor(rng.integers(0, len(data), (steps, B)),
                           device="cuda")
     zeros = [torch.zeros_like(t) for t in flat]
     return p, flat, n_enc, zeros, data, idx
@@ -220,89 +241,172 @@ def _rel_to_max(a: list, b: list) -> float:
                for x, y in zip(a, b))
 
 
+FUSED_KERNELS = ("fused_train_cluster", "fused_train")
+
+
+def _fused_bound(ft, flat, data, idx, d0: int, periodic: bool) -> tuple:
+    """Bound of a chunk: the card's, from the arithmetic of its steps and
+    the bytes it must move (parameters and moments in and out, the dataset,
+    the metrics, the indices), and the operations' time at the cluster's own
+    share of the card's f32 rate (ft.CLUSTER of 132 SMs)."""
+    steps, B = idx.shape
+    dims = [flat[0].shape[0]] + [w.shape[1] for w in flat[:len(flat) // 2]]
+    n_params = sum(t.numel() for t in flat)
+    ops = steps * fused_step_ops(dims, B, d0, periodic, n_params)
+    nbytes = 4 * (6 * n_params + data.numel() + steps * 5) + 8 * idx.numel()
+    cluster_ms = 1e3 * ops / (PEAK_F32_FLOPS * ft.CLUSTER / 132)
+    return bound_ms(ops, nbytes), cluster_ms
+
+
 def phase_fused(em, ft) -> dict:
-    """Kernel 1 against its plain version at [128,128,2], B=256: 5 steps
-    tightly, 100 steps against a float64 run of the plain version, then its
-    time at the main path's 500-step chunk."""
+    """Both fused train kernels against their plain version at [128,128,2],
+    B=256: 1 step, 5 steps tightly, 100 steps against a float64 run of the
+    plain version, a second 100-step run of the cluster kernel bit for bit;
+    then both kernels' time on the same 500-step chunk, and the cluster
+    kernel's split of a step by phase. Fails if the cluster kernel is the
+    slower one."""
     out = {}
     for d0, periodic in ((3, False), (4, True)):
         tag = "periodic d0=4" if periodic else "cube d0=3"
         p, flat, n_enc, zeros, data, idx = _fused_setup(em, ft, d0, periodic, 100)
         hyper = ft.hyper_from(p)
         kw = dict(n_enc=n_enc, hyper=hyper)
-
-        # 1 step: both take the gradient at the same parameters, so the
-        # moments (0.1 g and 0.001 g^2, g clipped) differ only by the order
-        # of f32 sums: held to 1e-4 of each tensor's largest entry. Adam's
-        # step hides a gradient's scale; these moments show it
-        _, mk, vk, _ = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx[:1], **kw)
-        _, mp, vp, _ = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data, idx[:1],
-                                            **kw)
-        m1 = _rel_to_max(mk + vk, mp + vp)
-        log(f"[fused {tag}] 1 step: moments max rel-to-max {m1:.3e}")
-        check(m1 <= 1e-4, f"fused {tag}: 1-step moments mismatch")
-
-        # 5 steps: f32 sums in another order; Adam divides each gradient by
-        # its own magnitude, so an element whose gradient is near zero can
-        # move by a good part of lr = 1e-3 on a rounding difference: params
-        # are held to a tenth of one step, the losses to 1e-4 relative, the
-        # moments to 1e-3 of each tensor's largest entry, as later gradients
-        # are taken at parameters that already differ
-        pk, mk, vk, met_k = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx[:5], **kw)
-        pp, mp, vp, met_p = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data,
-                                                 idx[:5], **kw)
-        e5, r5 = _max_err(pk, pp), _rel_err(met_k, met_p)
-        m5 = _rel_to_max(mk + vk, mp + vp)
-        log(f"[fused {tag}] 5 steps: params max abs {e5:.3e}, moments max rel-to-max "
-            f"{m5:.3e}, metrics max rel {r5:.3e}")
-        check(e5 <= 1e-4 and r5 <= 1e-4 and m5 <= 1e-3, f"fused {tag}: 5-step mismatch")
-
-        # 100 steps: training on periodic data amplifies rounding (the plain
-        # version in f32 and in f64 part by ~1e-2), so the kernel is held to
-        # three times the plain f32 version's own distance from f64, plus
-        # the 5-step bounds
-        pk, mk, vk, met_k = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx, **kw)
-        pp, mp, vp, met_p = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data,
-                                                 idx, **kw)
+        _, mp1, vp1, _ = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data, idx[:1], **kw)
+        pp5, mp5, vp5, met_p5 = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data,
+                                                     idx[:5], **kw)
+        pp, mp, vp, met_p = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data, idx, **kw)
         f64 = [t.double() for t in flat]
         z64 = [t.double() for t in zeros]
         p64, m64, v64, met_64 = ft.fused_chunk_plain(f64, z64, z64, 0.0,
                                                      data.double(), idx, **kw)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(met_k).all()), f"fused {tag}: non-finite metrics")
-        err_p = _max_err(pk, pp)
-        err_m = _max_err(mk + vk, mp + vp)
-        k64, p32 = _max_err(pk, p64), _max_err(pp, p64)
-        mk64, mp64 = _rel_err(met_k, met_64), _rel_err(met_p, met_64)
-        ok64, op64 = _rel_to_max(mk + vk, m64 + v64), _rel_to_max(mp + vp, m64 + v64)
-        log(f"[fused {tag}] 100 steps: kernel-plain params {err_p:.3e}, moments "
-            f"{err_m:.3e}; vs f64: kernel params {k64:.3e} moments {ok64:.3e} "
-            f"metrics {mk64:.3e}, plain params {p32:.3e} moments {op64:.3e} "
-            f"metrics {mp64:.3e}; loss "
-            f"{float(met_k[0, 4]):.4f} -> {float(met_k[-1, 4]):.4f}")
-        check(k64 <= 3 * p32 + 1e-4 and mk64 <= 3 * mp64 + 1e-4
-              and ok64 <= 3 * op64 + 1e-3,
-              f"fused {tag}: further from f64 than 3x the plain version")
+        p32, mp64 = _max_err(pp, p64), _rel_err(met_p, met_64)
+        op64 = _rel_to_max(mp + vp, m64 + v64)
+        errs = {}
+        for kernel in FUSED_KERNELS:
+            kkw = dict(kw, kernel=kernel)
+            name = f"[fused {tag} {kernel}]"
+            # 1 step: both take the gradient at the same parameters, so the
+            # moments (0.1 g and 0.001 g^2, g clipped) differ only by the
+            # order of f32 sums: held to 1e-4 of each tensor's largest
+            # entry. Adam's step hides a gradient's scale; these moments
+            # show it
+            _, mk, vk, _ = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx[:1], **kkw)
+            m1 = _rel_to_max(mk + vk, mp1 + vp1)
+            log(f"{name} 1 step: moments max rel-to-max {m1:.3e}")
+            check(m1 <= 1e-4, f"{name} 1-step moments mismatch")
+
+            # 5 steps: f32 sums in another order; Adam divides each
+            # gradient by its own magnitude, so an element whose gradient
+            # is near zero can move by a good part of lr = 1e-3 on a
+            # rounding difference: params are held to a tenth of one step,
+            # the losses to 1e-4 relative, the moments to 1e-3 of each
+            # tensor's largest entry, as later gradients are taken at
+            # parameters that already differ
+            pk, mk, vk, met_k = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx[:5],
+                                               **kkw)
+            e5, r5 = _max_err(pk, pp5), _rel_err(met_k, met_p5)
+            m5 = _rel_to_max(mk + vk, mp5 + vp5)
+            log(f"{name} 5 steps: params max abs {e5:.3e}, moments max rel-to-max "
+                f"{m5:.3e}, metrics max rel {r5:.3e}")
+            check(e5 <= 1e-4 and r5 <= 1e-4 and m5 <= 1e-3, f"{name} 5-step mismatch")
+
+            # 100 steps: training on periodic data amplifies rounding (the
+            # plain version in f32 and in f64 part by ~1e-2), so the kernel
+            # is held to three times the plain f32 version's own distance
+            # from f64, plus the 5-step bounds. On periodic data the plain
+            # moments' own distance is of the order of the moments, so there
+            # the moment check bounds nothing: the 1- and 5-step checks hold
+            # the moments
+            pk, mk, vk, met_k = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx, **kkw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(met_k).all()), f"{name} non-finite metrics")
+            err_p = _max_err(pk, pp)
+            err_m = _max_err(mk + vk, mp + vp)
+            k64, mk64 = _max_err(pk, p64), _rel_err(met_k, met_64)
+            ok64 = _rel_to_max(mk + vk, m64 + v64)
+            log(f"{name} 100 steps: kernel-plain params {err_p:.3e}, moments "
+                f"{err_m:.3e}; vs f64: kernel params {k64:.3e} moments {ok64:.3e} "
+                f"metrics {mk64:.3e}, plain params {p32:.3e} moments {op64:.3e} "
+                f"metrics {mp64:.3e}; loss "
+                f"{float(met_k[0, 4]):.4f} -> {float(met_k[-1, 4]):.4f}")
+            check(k64 <= 3 * p32 + 1e-4 and mk64 <= 3 * mp64 + 1e-4
+                  and ok64 <= 3 * op64 + 1e-3,
+                  f"{name} further from f64 than 3x the plain version")
+            if kernel == "fused_train_cluster":
+                again = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx, **kkw)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(pk + mk + vk + [met_k],
+                               again[0] + again[1] + again[2] + [again[3]]))
+                log(f"{name} 100 steps run twice: bit-identical {same}")
+                check(same, f"{name} differs between two runs of one chunk")
+            errs[kernel] = err_p
 
         p, flat, n_enc, zeros, data, idx = _fused_setup(em, ft, d0, periodic, 500)
-        ms = time_ms(lambda: ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx,
-                                            n_enc=n_enc, hyper=hyper), 3)
+        runs = {k: dict(n_enc=n_enc, hyper=hyper, kernel=k) for k in FUSED_KERNELS}
+        ms = {k: [] for k in runs}
+        for order in (list(runs), list(runs)[::-1]):  # in turns: a, b, b, a
+            for k in order:
+                ms[k].append(time_ms(lambda: ft.fused_chunk(flat, zeros, zeros, 0.0,
+                                                            data, idx, **runs[k]), 3))
+        ms = {k: sum(v) / len(v) for k, v in ms.items()}
         ms_p = time_ms(lambda: ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data,
                                                     idx, n_enc=n_enc, hyper=hyper),
                        1, warmup=0)
-        dims = [flat[0].shape[0]] + [w.shape[1] for w in flat[:len(flat) // 2]]
-        n_params = sum(t.numel() for t in flat)
-        ops = 500 * fused_step_ops(dims, 256, d0, periodic, n_params)
-        nbytes = 4 * (6 * n_params + data.numel() + 500 * 5) + 8 * idx.numel()
-        b = bound_ms(ops, nbytes)
-        log(f"[fused {tag}] 500-step chunk: {ms:.3f} ms ({1e3 * ms / 500:.2f} us/step), "
-            f"plain {ms_p:.1f} ms, bound {b[0]:.4f} ms ({b[1]})")
-        out[tag] = (err_p, ms, ms_p, b)
+        b, cluster_ms = _fused_bound(ft, flat, data, idx, d0, periodic)
+        for k in FUSED_KERNELS:
+            log(f"[fused {tag} {k}] 500-step chunk: {ms[k]:.3f} ms "
+                f"({1e3 * ms[k] / 500:.2f} us/step), plain {ms_p:.1f} ms, bound "
+                f"{b[0]:.4f} ms ({b[1]})")
+        log(f"[fused {tag}] the {ft.CLUSTER}-SM cluster's own f32 ceiling: "
+            f"{cluster_ms:.4f} ms")
+        check(ms["fused_train_cluster"] < ms["fused_train"],
+              f"fused {tag}: the cluster kernel is slower than the grid kernel")
+
+        clocks = torch.zeros((ft.CLUSTER, len(ft.CLUSTER_PHASES)), dtype=torch.int64,
+                             device="cuda")
+        ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx, clocks=clocks,
+                       **runs["fused_train_cluster"])
+        torch.cuda.synchronize()
+        cyc = clocks.double().mean(0)
+        us_step = 1e3 * ms["fused_train_cluster"] / 500
+        split = ", ".join(f"{name} {float(c / cyc.sum()) * us_step:.2f}"
+                          for name, c in zip(ft.CLUSTER_PHASES, cyc))
+        log(f"[fused {tag}] cluster kernel's step by phase (us, cycle shares of "
+            f"thread 0 averaged over the CTAs, scaled to {us_step:.2f} us): {split}")
+        out[tag] = dict(err=errs, ms=ms, ms_p=ms_p, bound=b, cluster_ms=cluster_ms)
     return out
 
 
+def phase_fused_router(em, ft, _build) -> dict:
+    """The router on fused batch 1024 at [128,128,2]: one cluster CTA's
+    rows would outgrow its shared memory, so the grid kernel runs; held to
+    its plain version over 5 steps, and timed on that chunk. Returns its
+    launches, error, times and bound."""
+    p, flat, n_enc, zeros, data, idx = _fused_setup(em, ft, 3, False, 5, B=1024)
+    kw = dict(n_enc=n_enc, hyper=ft.hyper_from(p))
+    _build.launch_counts.clear()
+    pk, mk, vk, met_k = ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx, **kw)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    check(counts == {"fused_train": 1}, f"fused B=1024 launched {counts}")
+    pp, mp, vp, met_p = ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data, idx, **kw)
+    e5, r5 = _max_err(pk, pp), _rel_err(met_k, met_p)
+    m5 = _rel_to_max(mk + vk, mp + vp)
+    log(f"[fused router B=1024] launches {counts}; 5 steps: params max abs {e5:.3e}, "
+        f"moments max rel-to-max {m5:.3e}, metrics max rel {r5:.3e}")
+    check(e5 <= 1e-4 and r5 <= 1e-4 and m5 <= 1e-3, "fused B=1024: 5-step mismatch")
+    ms = time_ms(lambda: ft.fused_chunk(flat, zeros, zeros, 0.0, data, idx, **kw), 5)
+    ms_p = time_ms(lambda: ft.fused_chunk_plain(flat, zeros, zeros, 0.0, data, idx, **kw),
+                   1, warmup=0)
+    b, _ = _fused_bound(ft, flat, data, idx, 3, False)
+    log(f"[fused router B=1024] grid kernel 5-step chunk: {ms:.3f} ms "
+        f"({1e3 * ms / 5:.2f} us/step), plain {ms_p:.2f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    return dict(launches=counts["fused_train"], err=e5, ms=ms, ms_p=ms_p, bound=b)
+
+
 def phase_train(em, _build, run_dir: Path, periodic: bool) -> int:
-    """EncoderMap.train() on the fused route; returns kernel-1 launches."""
+    """EncoderMap.train() on the fused route; returns the cluster kernel's
+    launches (the shape fits it, so the grid kernel must not run)."""
     tag = "periodic 4-dihedral" if periodic else "cube"
     if periodic:
         data = np.random.default_rng(0).uniform(
@@ -318,10 +422,12 @@ def phase_train(em, _build, run_dir: Path, periodic: bool) -> int:
     hist = emap.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _build.launch_counts["fused_train"]
-    check(launches > 0, f"train {tag}: the fused kernel was not launched")
+    launches = _build.launch_counts["fused_train_cluster"]
+    check(launches > 0, f"train {tag}: the cluster kernel was not launched")
+    check(_build.launch_counts["fused_train"] == 0,
+          f"train {tag}: the grid kernel ran on a shape the cluster kernel takes")
     first, last = hist["loss"][:500].mean(), hist["loss"][-500:].mean()
-    log(f"[train {tag}] fused launches {launches}, loss first chunk mean "
+    log(f"[train {tag}] cluster kernel launches {launches}, loss first chunk mean "
         f"{first:.4f} -> last {last:.4f}, train() {wall:.2f} s")
     check(last < first, f"train {tag}: loss did not fall")
 
@@ -367,7 +473,8 @@ def phase_general(em, _build, run_dir: Path, sig_ms: float) -> dict:
     counts = dict(_build.launch_counts)
     check(counts.get("sigmoid_fwd", 0) > 0 and counts.get("sigmoid_bwd", 0) > 0,
           f"general route: sigmoid kernels not launched ({counts})")
-    check(counts.get("fused_train", 0) == 0, "general route ran the fused kernel")
+    check(counts.get("fused_train", 0) == 0 and counts.get("fused_train_cluster", 0) == 0,
+          "general route ran a fused kernel")
     check(bool(np.isfinite(hist["loss"]).all()), "general route: non-finite loss")
     log(f"[general] launches {counts}, loss {hist['loss'][0]:.4f} -> "
         f"{hist['loss'][-1]:.4f}, {6 * 16384 / wall:.0f} samples/s "
@@ -405,6 +512,7 @@ def main() -> int:
     sig = phase_sigmoid(fs, _build)
     router = phase_router(fs)
     fused = phase_fused(em, ft)
+    grid = phase_fused_router(em, ft, _build)
 
     runs = ROOT / "build" / "chip_smoke_runs"
     runs.mkdir(parents=True, exist_ok=True)
@@ -415,13 +523,21 @@ def main() -> int:
                                 router[3, 16384][0])
 
     main_sig = sig["D=3 euclid"]
-    err1, ms1, ms1p, b1 = fused["cube d0=3"]
+    cube = fused["cube d0=3"]
     kernels = [
+        dict(name="fused_train_cluster", route="cuda",
+             source="encodermap_tpu_torch/csrc/fused_train_cluster.cu",
+             replaces="encodermap_tpu/ops/pallas_train.py:303",
+             launches=launches, max_abs_err=cube["err"]["fused_train_cluster"],
+             ms=cube["ms"]["fused_train_cluster"], plain_ms=cube["ms_p"],
+             bound_ms=cube["bound"][0], bound_by=cube["bound"][1], library_ms=None),
+        # on the path the router sends it: fused B=1024, a 5-step chunk
         dict(name="fused_train", route="cuda",
              source="encodermap_tpu_torch/csrc/fused_train.cu",
              replaces="encodermap_tpu/ops/pallas_train.py:303",
-             launches=launches, max_abs_err=err1, ms=ms1, plain_ms=ms1p,
-             bound_ms=b1[0], bound_by=b1[1], library_ms=None),
+             launches=grid["launches"], max_abs_err=grid["err"],
+             ms=grid["ms"], plain_ms=grid["ms_p"],
+             bound_ms=grid["bound"][0], bound_by=grid["bound"][1], library_ms=None),
     ]
     for name, key, line, count in (("sigmoid_fwd", "fwd", 120, "sigmoid_fwd"),
                                    ("sigmoid_bwd", "bwd", 139, "sigmoid_bwd")):

@@ -1,16 +1,23 @@
 # encodermap_tpu_torch/ops/fused_train.py
 """A chunk of EncoderMap optimizer steps in one hand-written CUDA kernel.
 
-Counterpart of ``encodermap_tpu/ops/pallas_train.py``. The kernel
-(``csrc/fused_train.cu``) replaces ``pallas_train.py::_fused_kernel``: each
-of its steps gathers a batch from the device-resident dataset, runs the tanh
-MLP autoencoder forward, the four EncoderMap losses (auto mean_abs, center,
-L2, sketch-map sigmoid over all B x B pairs; min-image where periodic), the
-hand-derived backward pass of :func:`hand_step`, the clip to +-1 and Adam,
-and writes one metrics row.
+Counterpart of ``encodermap_tpu/ops/pallas_train.py``. Two kernels replace
+``pallas_train.py::_fused_kernel``; each of their steps gathers a batch from
+the device-resident dataset, runs the tanh MLP autoencoder forward, the four
+EncoderMap losses (auto mean_abs, center, L2, sketch-map sigmoid over all
+B x B pairs; min-image where periodic), the hand-derived backward pass of
+:func:`hand_step`, the clip to +-1 and Adam, and writes one metrics row:
 
-Its plain version is :func:`fused_chunk_plain`: :func:`hand_step` plus
-:func:`_adam_update`, looped over the steps. :func:`fused_chunk` launches the
+- ``csrc/fused_train_cluster.cu``: one thread-block cluster of
+  :data:`CLUSTER` CTAs with the batch rows split across them and the
+  activations in shared memory;
+- ``csrc/fused_train.cu``: one cooperative launch over the whole card, for
+  the shapes whose per-CTA footprint (:func:`cluster_footprint`) exceeds the
+  227 KB of shared memory a block may use.
+
+:func:`fused_route` picks one by shape before the launch. Their plain
+version is :func:`fused_chunk_plain`: :func:`hand_step` plus
+:func:`_adam_update`, looped over the steps. :func:`fused_chunk` launches a
 kernel for CUDA tensors and runs the plain version only for CPU tensors.
 
 Unlike the TPU kernel, the fold-out uses the native ``atan2``: the TPU needed
@@ -34,18 +41,40 @@ __all__ = [
     "fused_chunk_plain",
     "fused_trainer_available",
     "config_covered",
+    "cluster_footprint",
+    "fused_route",
     "split_params",
     "join_params",
     "make_fused_trainer",
 ]
 
 _LIB = "fused_train"
+_CLUSTER_LIB = "fused_train_cluster"
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _build.register(_LIB, [
     ("em_fused_train_workspace", [_I, _I, _P, _I, _I], ctypes.c_longlong),
     ("em_fused_train", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _D, _P,
                         _P, _P, _P]),
 ])
+_build.register(_CLUSTER_LIB, [
+    ("em_fused_train_cluster", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                _D, _P, _P, _P, _P]),
+])
+
+#: CTAs per cluster of the cluster kernel, ``kCluster`` in its source: 16
+#: (a non-portable size Hopper allows) ran faster than 8 at the main
+#: configuration (PERF.md)
+CLUSTER = 16
+#: shared memory one block may use on Hopper (227 KB)
+MAX_SMEM_BYTES = 232448
+#: layers (encoder + decoder) the kernels' layer tables hold
+MAX_LAYERS = 16
+#: phases of the cluster kernel's cycle trace (``Phase`` in its source)
+CLUSTER_PHASES = ("gather", "stage weights", "forward", "wait: losses",
+                  "losses", "pair gradients", "backward: delta",
+                  "backward: partial", "wait: reduce", "reduce + Adam",
+                  "wait: update")
+_THREADS, _METRICS = 256, 4
 
 METRIC_NAMES = ("auto_loss", "center_loss", "regularization_loss",
                 "distance_loss", "loss")
@@ -275,9 +304,50 @@ def _unpack(flat: torch.Tensor, like: list) -> list:
     return out
 
 
+def cluster_footprint(dims: list, n_enc: int, B: int, d0: int) -> dict:
+    """Shared-memory bytes one CTA of the cluster kernel needs, by item, and
+    their ``"total"``: the formula of ``layout()`` in
+    ``csrc/fused_train_cluster.cu``. ``dims = [d_in, widths of the L
+    layers]``; each CTA holds ``R = ceil(B / CLUSTER)`` batch rows."""
+    if len(dims) - 1 > MAX_LAYERS:
+        raise ValueError(f"{len(dims) - 1} layers exceed the kernels' layer "
+                         f"table of {MAX_LAYERS}")
+    R = -(-B // CLUSTER)
+    maxw, dl = max(dims), dims[n_enc]
+    # two buffers of whole float4s, each one layer's weights, rows of
+    # dout + 4 where they are whole float4s in the flat parameters (else
+    # dout + 1), then its (din + 1) x dout partial weight and bias gradients
+    weights, w_off = 0, 0
+    for din, dout in zip(dims[:-1], dims[1:]):
+        ld = dout + 4 if w_off % 4 == 0 and dout % 4 == 0 else dout + 1
+        weights = max(weights, din * ld, (din + 1) * dout)
+        w_off += din * dout
+    floats = dict(
+        weights=2 * (-(-weights // 4) * 4),
+        activations=R * sum(dims),       # every layer's input and output
+        deltas=2 * R * maxw,             # this layer's delta and the next
+        gathered=B * (d0 + dl),          # every row's raw input and latent
+        rows=R * (d0 + dl),              # own raw rows, their pair gradient
+        pairs=2 * R * (B // 2),          # own rows' pair terms, both halves
+        other=maxw + _THREADS + 2 * _METRICS,  # bias, block sums, metrics
+    )
+    out = {k: 4 * v for k, v in floats.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def fused_route(dims: list, n_enc: int, B: int, d0: int) -> str:
+    """The kernel that trains this shape: ``"fused_train_cluster"`` where
+    one CTA's :func:`cluster_footprint` fits in :data:`MAX_SMEM_BYTES`,
+    else ``"fused_train"``. Raises past the layer table."""
+    fits = cluster_footprint(dims, n_enc, B, d0)["total"] <= MAX_SMEM_BYTES
+    return _CLUSTER_LIB if fits else _LIB
+
+
 def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
                 step0: float, data: torch.Tensor, idx: torch.Tensor, *,
-                n_enc: int, hyper: dict):
+                n_enc: int, hyper: dict, kernel: Optional[str] = None,
+                clocks: Optional[torch.Tensor] = None):
     """Run ``steps = idx.shape[0]`` optimizer steps in one kernel launch.
 
     Args:
@@ -288,6 +358,12 @@ def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
         idx: ``(steps, B)`` int64 batch indices into ``data``.
         n_enc: number of encoder layers.
         hyper: ``{"learning_rate": float, "losses": {hand_step kwargs}}``.
+        kernel: ``"fused_train_cluster"`` or ``"fused_train"``; by default
+            :func:`fused_route` picks one by shape. A cluster kernel that
+            does not fit raises.
+        clocks: a ``(CLUSTER, len(CLUSTER_PHASES))`` int64 tensor on the
+            device that receives the cluster kernel's cycles per phase,
+            summed over the steps, as thread 0 of each CTA sees them.
 
     Returns:
         ``(params_flat, mu_flat, nu_flat, metrics (steps, 5))``.
@@ -315,11 +391,12 @@ def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
     if dims[0] != d_in or dims[-1] != d_in or not 0 < n_enc < n_w:
         raise ValueError(f"layer widths {dims} (n_enc={n_enc}) do not fit "
                          f"{data.shape[1]}-column {'periodic ' * periodic}data")
-    lib = _build.load_library(_LIB)
+    d0 = data.shape[1]
+    route = kernel or fused_route(dims, n_enc, B, d0)
+    if route not in (_LIB, _CLUSTER_LIB):
+        raise ValueError(f"unknown kernel {route!r}")
+    lib = _build.load_library(route)
     dims_c = (ctypes.c_int * len(dims))(*dims)
-    ws = lib.em_fused_train_workspace(n_enc, n_dec, dims_c, B, data.shape[1])
-    if ws < 0:
-        raise ValueError(f"{n_w} layers exceed the kernel's layer table")
     losses = hyper["losses"]
     hyper_c = (ctypes.c_double * 12)(
         losses["auto_cost_scale"], losses["center_cost_scale"],
@@ -331,15 +408,33 @@ def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
     nu = _pack(nu_flat)
     data = data.contiguous()
     idx = idx.to(device=data.device, dtype=torch.int64).contiguous()
-    scratch = torch.empty(ws, dtype=torch.float32, device=data.device)
     metrics = torch.empty((steps, 5), dtype=torch.float32, device=data.device)
-    err = lib.em_fused_train(
-        params.data_ptr(), mu.data_ptr(), nu.data_ptr(), data.data_ptr(),
-        idx.data_ptr(), steps, B, data.shape[1], n_enc, n_dec, dims_c,
-        float(step0), hyper_c, metrics.data_ptr(), scratch.data_ptr(),
-        _build.stream_ptr())
-    _build.launch_counts["fused_train"] += 1
-    _build.check_cuda(lib, err, "em_fused_train")
+    args = (params.data_ptr(), mu.data_ptr(), nu.data_ptr(), data.data_ptr(),
+            idx.data_ptr(), steps, B, d0, n_enc, n_dec, dims_c, float(step0),
+            hyper_c, metrics.data_ptr())
+    if route == _CLUSTER_LIB:
+        need = cluster_footprint(dims, n_enc, B, d0)["total"]
+        if need > MAX_SMEM_BYTES:
+            raise ValueError(f"B={B} at widths {dims} needs {need} bytes of "
+                             f"shared memory per CTA of a {CLUSTER}-CTA "
+                             f"cluster; a block may use {MAX_SMEM_BYTES}")
+        shape = (CLUSTER, len(CLUSTER_PHASES))
+        if clocks is not None and (clocks.dtype != torch.int64
+                                   or tuple(clocks.shape) != shape
+                                   or clocks.device != data.device):
+            raise ValueError(f"clocks must be an int64 {shape} tensor on "
+                             f"{data.device}")
+        err = lib.em_fused_train_cluster(
+            *args, None if clocks is None else clocks.data_ptr(),
+            _build.stream_ptr())
+    else:
+        ws = lib.em_fused_train_workspace(n_enc, n_dec, dims_c, B, d0)
+        if ws < 0:
+            raise ValueError(f"{n_w} layers exceed the kernel's layer table")
+        scratch = torch.empty(ws, dtype=torch.float32, device=data.device)
+        err = lib.em_fused_train(*args, scratch.data_ptr(), _build.stream_ptr())
+    _build.launch_counts[route] += 1
+    _build.check_cuda(lib, err, f"{route} launch")
     return (_unpack(params, params_flat), _unpack(mu, mu_flat),
             _unpack(nu, nu_flat), metrics)
 

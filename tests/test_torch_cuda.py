@@ -13,7 +13,8 @@ gradients to 1e-4 relative to their largest entry; five fused train steps
 agree to a tenth of one Adam step (1e-4) in the parameters, since Adam
 divides each gradient by its magnitude, and to 1e-3 of each moment tensor's
 largest entry in the Adam moments, whose later gradients are taken at
-parameters that already differ by that much."""
+parameters that already differ by that much. Both fused train kernels, the
+cluster kernel and the grid kernel, are held to the same bounds."""
 
 import math
 
@@ -105,13 +106,7 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         fs.sigmoid_loss_fwd(h, l.cpu(), SIG[0], float("inf"))
 
 
-@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
-@pytest.mark.parametrize("n_neurons,d0,B", [([32, 16, 2], 3, 50),
-                                            ([16, 12, 10], 11, 300)],
-                         ids=["2-d latent", "10-d latent"])
-def test_fused_train_kernel_matches_plain(cuda, periodic, n_neurons, d0, B):
-    """Ragged batch sizes, and a latent wider than the kernel's 8-component
-    pass."""
+def _fused_case(cuda, n_neurons, d0, B, periodic, steps, n_data=500):
     import encodermap_tpu_torch as em
     from encodermap_tpu_torch.models import sequential as seq
     from encodermap_tpu_torch.ops import fused_train as ft
@@ -122,12 +117,26 @@ def test_fused_train_kernel_matches_plain(cuda, periodic, n_neurons, d0, B):
     params = seq.init_params(torch.Generator().manual_seed(0), p, d0, device=cuda)
     flat, n_enc = ft.split_params(params)
     rng = np.random.default_rng(0)
-    data = torch.tensor(rng.uniform(-np.pi, np.pi, (500, d0)), dtype=torch.float32,
+    data = torch.tensor(rng.uniform(-np.pi, np.pi, (n_data, d0)), dtype=torch.float32,
                         device=cuda)
-    idx = torch.tensor(rng.integers(0, 500, (5, B)), device=cuda)
+    idx = torch.tensor(rng.integers(0, n_data, (steps, B)), device=cuda)
     z = [torch.zeros_like(t) for t in flat]
-    kw = dict(n_enc=n_enc, hyper=ft.hyper_from(p))
-    kp, km, kv, kmet = ft.fused_chunk(flat, z, z, 3.0, data, idx, **kw)
+    return flat, z, data, idx, dict(n_enc=n_enc, hyper=ft.hyper_from(p))
+
+
+@pytest.mark.parametrize("kernel", ["fused_train_cluster", "fused_train"])
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+@pytest.mark.parametrize("n_neurons,d0,B", [([32, 16, 2], 3, 50),
+                                            ([16, 12, 10], 11, 300)],
+                         ids=["2-d latent", "10-d latent"])
+def test_fused_train_kernel_matches_plain(cuda, periodic, n_neurons, d0, B, kernel):
+    """Ragged batch sizes (50 and 300 rows over the cluster's CTAs), a
+    latent wider than the kernels' 8-component pass, and input widths 3,
+    6, 11 and 22 (periodic d0=11)."""
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    flat, z, data, idx, kw = _fused_case(cuda, n_neurons, d0, B, periodic, 5)
+    kp, km, kv, kmet = ft.fused_chunk(flat, z, z, 3.0, data, idx, kernel=kernel, **kw)
     pp, pm, pv, pmet = ft.fused_chunk_plain(flat, z, z, 3.0, data, idx, **kw)
     for a, b in zip(kp, pp):
         assert float((a - b).abs().max()) <= 1e-4
@@ -139,6 +148,45 @@ def test_fused_train_kernel_matches_plain(cuda, periodic, n_neurons, d0, B):
     assert float(((kmet - pmet).abs() / pmet.abs()).max()) <= 1e-4
 
 
+def test_fused_router_takes_the_kernel_the_shape_fits(cuda):
+    """[128,128,2] at B=256 fits one cluster CTA's shared memory and takes
+    the cluster kernel; B=1024 does not and takes the grid kernel, which
+    still matches its plain version there."""
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    for B, kernel in ((256, "fused_train_cluster"), (1024, "fused_train")):
+        flat, z, data, idx, kw = _fused_case(cuda, [128, 128, 2], 3, B, False, 3,
+                                             n_data=5000)
+        before = dict(_build.launch_counts)
+        kp, km, kv, kmet = ft.fused_chunk(flat, z, z, 0.0, data, idx, **kw)
+        after = dict(_build.launch_counts)
+        other = ({"fused_train", "fused_train_cluster"} - {kernel}).pop()
+        assert after[kernel] == before.get(kernel, 0) + 1
+        assert after.get(other, 0) == before.get(other, 0)
+        pp, pm, pv, pmet = ft.fused_chunk_plain(flat, z, z, 0.0, data, idx, **kw)
+        for a, b in zip(kp, pp):
+            assert float((a - b).abs().max()) <= 1e-4
+        for a, b in zip(km + kv, pm + pv):
+            assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+        assert float(((kmet - pmet).abs() / pmet.abs()).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+def test_cluster_kernel_is_bit_reproducible(cuda, periodic):
+    """Every sum of the cluster kernel is taken in a fixed order (no float
+    atomics), so the same chunk gives the same bits twice."""
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    flat, z, data, idx, kw = _fused_case(cuda, [128, 128, 2], 4 if periodic else 3,
+                                         256, periodic, 20, n_data=5000)
+    first = ft.fused_chunk(flat, z, z, 0.0, data, idx, kernel="fused_train_cluster", **kw)
+    second = ft.fused_chunk(flat, z, z, 0.0, data, idx, kernel="fused_train_cluster", **kw)
+    for a, b in zip(first[0] + first[1] + first[2] + [first[3]],
+                    second[0] + second[1] + second[2] + [second[3]]):
+        assert torch.equal(a, b)
+
+
 def test_encodermap_trains_through_fused_kernel(cuda, tmp_path):
     import encodermap_tpu_torch as em
     from encodermap_tpu_torch.ops import _build
@@ -148,9 +196,11 @@ def test_encodermap_trains_through_fused_kernel(cuda, tmp_path):
                       periodicity=float("inf"), n_steps=400, steps_per_scan=200,
                       seed=0)
     emap = em.EncoderMap(p, data)
-    before = _build.launch_counts["fused_train"]
+    before = dict(_build.launch_counts)
     hist = emap.train()
-    assert _build.launch_counts["fused_train"] == before + 2
+    # [64,64,2] at B=256 fits the cluster kernel
+    assert _build.launch_counts["fused_train_cluster"] == before.get("fused_train_cluster", 0) + 2
+    assert _build.launch_counts["fused_train"] == before.get("fused_train", 0)
     assert hist["loss"][-50:].mean() < hist["loss"][:50].mean()
     again = em.EncoderMap.from_checkpoint(tmp_path, train_data=data)
     assert np.array_equal(again.encode(data), emap.encode(data))

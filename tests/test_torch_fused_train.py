@@ -207,3 +207,59 @@ def test_fused_trainer_matches_general_route(tmp_path, periodic):
             for name in ("kernel", "bias"):
                 assert a[name].shape == b[name].shape
                 np.testing.assert_allclose(a[name].numpy(), b[name].numpy(), atol=2e-5)
+
+
+def _main_dims(periodic):
+    """[128,128,2] on 3 cube columns or 4 periodic ones (sin/cos: 8 wide)."""
+    w = 8 if periodic else 3
+    return [w, 128, 128, 2, 128, 128, w], (4 if periodic else 3)
+
+
+@pytest.mark.parametrize("periodic,width,act_bytes,gathered", [
+    (True, 530, 33920, 6144), (False, 520, 33280, 5120)], ids=["periodic", "cube"])
+def test_cluster_footprint_matches_design_table(periodic, width, act_bytes, gathered):
+    """At [128,128,2], B=256, periodic d0=4 (cube d0=3): R = 256 / 16 rows
+    of 530 (520) activations, two 128-wide delta buffers, every row's raw
+    input and latent (6,144 or 5,120 bytes), two weight buffers that each
+    hold a 128 x 128 layer at a row stride of 132 floats (or its 129 x 128
+    partial gradients), and both halves of the own rows' pair terms."""
+    dims, d0 = _main_dims(periodic)
+    f = FT.cluster_footprint(dims, 3, 256, d0)
+    assert FT.CLUSTER == 16
+    assert sum(dims) == width
+    assert f["activations"] == act_bytes == 16 * width * 4
+    assert f["deltas"] == 2 * 16 * 128 * 4 == 16384
+    assert f["gathered"] == 256 * (d0 + 2) * 4 == gathered
+    assert f["weights"] == 2 * 128 * 132 * 4
+    assert f["total"] == sum(v for k, v in f.items() if k != "total")
+    assert f["total"] <= FT.MAX_SMEM_BYTES
+    assert f["pairs"] == 2 * 16 * 128 * 4
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+def test_fused_route_by_shape(periodic):
+    """The main configuration (B=256) takes the cluster kernel; batches
+    whose rows outgrow one CTA's shared memory take the grid kernel."""
+    dims, d0 = _main_dims(periodic)
+
+    def need(B):
+        return FT.cluster_footprint(dims, 3, B, d0)["total"]
+
+    assert need(256) <= FT.MAX_SMEM_BYTES
+    assert FT.fused_route(dims, 3, 256, d0) == "fused_train_cluster"
+    for B in (1024, 4096):
+        assert need(B) > FT.MAX_SMEM_BYTES
+        assert FT.fused_route(dims, 3, B, d0) == "fused_train"
+    # the footprint grows with the rows a CTA holds
+    assert need(512) > need(256)
+
+
+def test_cluster_footprint_refuses_past_layer_table():
+    sixteen = [3] + [8] * 15 + [3]
+    assert len(sixteen) - 1 == FT.MAX_LAYERS
+    assert FT.fused_route(sixteen, 8, 256, 3) == "fused_train_cluster"
+    seventeen = [3] + [8] * 16 + [3]
+    with pytest.raises(ValueError, match="layer table"):
+        FT.cluster_footprint(seventeen, 9, 256, 3)
+    with pytest.raises(ValueError, match="layer table"):
+        FT.fused_route(seventeen, 9, 256, 3)
