@@ -35,9 +35,15 @@ ROOT = Path(__file__).resolve().parent
 #: tensor cores, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-#: arithmetic per evaluation, transcendentals (pow, sqrt, div) counted as
-#: one operation each: the sketch-map sigmoid (divide, integer power by
-#: squaring, multiply-add, pow, subtract) and s'(r)/r
+#: instruction rates of the card's FP32 pipe (a fused multiply-add is one
+#: instruction and two of the 67e12 flops) and of its MUFU unit (16 results
+#: per clock per SM against 128 FP32 lanes)
+FP32_INSTR_PER_S = PEAK_F32_FLOPS / 2
+MUFU_PER_S = PEAK_F32_FLOPS / 16
+#: arithmetic per evaluation in the fused train kernel's bound,
+#: transcendentals (pow, sqrt, div) counted as one operation each: the
+#: sketch-map sigmoid (divide, integer power by squaring, multiply-add, pow,
+#: subtract) and s'(r)/r
 SIG_OPS = 10
 DSIG_OPS = 8
 
@@ -75,13 +81,76 @@ def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def sigmoid_pair_ops(D: int, d: int, periodic: bool, backward: bool) -> int:
-    """Arithmetic per pair of the sigmoid-loss kernels: the component
-    differences (3 per Euclidean component, 6 per min-image one), two
-    guarded square roots, two sigmoids, then the squared difference
-    (forward) or s'(r)/r and the row sums (backward)."""
-    ops = (6 if periodic else 3) * D + 3 * d + 2 + 2 * SIG_OPS
-    return ops + (DSIG_OPS + 2 + 2 * d if backward else 3)
+def _pow_muls(n: int) -> int:
+    """Multiplies of x**n by repeated squaring."""
+    return n.bit_length() - 1 + bin(n).count("1") - 1
+
+
+def _side_cost(sig: float, a: float, b: float, periodic: bool,
+               grad: bool) -> tuple[int, int]:
+    """FP32-pipe instructions and MUFU operations of one side's sigmoid on
+    one pair, evaluated as cheaply as is correct (csrc/sigmoid_pairs.cuh):
+    t = (r/sig)^a, u = 1 + c t, y = u^e, and with ``grad`` s'(r)/r. A
+    reciprocal, rsqrt or sqrt is one MUFU operation; powf two (lg2, ex2)
+    and a multiply."""
+    fp, mufu = 0, 0
+    int_a = a == int(a) and 1 <= a <= 64
+    if not periodic and int_a and int(a) % 2 == 0:
+        fp += 1 + _pow_muls(int(a) // 2)         # (r^2 / sig^2)^(a/2)
+    else:
+        mufu += 1                                # sqrt
+        fp += 2 if periodic else 1               # + 1e-12, times 1/sig
+        fp, mufu = (fp + _pow_muls(int(a)), mufu) if int_a else (fp + 1, mufu + 2)
+    fp += 1                                      # u
+    m = b / a
+    if m == int(m) and 1 <= m <= 16:             # reciprocal, products
+        mufu += 1
+        fp += _pow_muls(int(m)) + (1 if grad else 0)
+    elif m - 0.5 == int(m - 0.5) and m <= 16.5:  # rsqrt, products
+        n = int(m - 0.5)
+        mufu += 1
+        fp += (2 + _pow_muls(n) if n else 0) + ((1 if n else 2) if grad else 0)
+    else:
+        mufu += 2 + (1 if grad else 0)
+        fp += 1 + (1 if grad else 0)
+    if grad:
+        fp += 1                                  # times b c [/ sig^2]
+        if a != 2:
+            mufu += 1                            # 1 / r^2
+            fp += 2
+    return fp, mufu
+
+
+def sigmoid_pair_cost(D: int, d: int, periodic: bool, backward: bool,
+                      params: tuple) -> tuple[int, int]:
+    """FP32-pipe instructions and MUFU operations per unordered pair of the
+    sigmoid-loss kernels' cheapest correct evaluation at these parameters:
+    the component differences and squares (2 per Euclidean component, 6 per
+    min-image one: difference, P - |t|, min, the zero guard's compare and
+    select, square-add), both sigmoids, then the squared difference
+    (forward) or the pair term with its zero mask and the row and column
+    partials of all d + 1 sums (backward)."""
+    fh, mh = _side_cost(*params[:3], periodic, False)
+    fl, ml = _side_cost(*params[3:], False, backward)
+    fp = (6 if periodic else 2) * D + 2 * d + fh + fl
+    fp += 2 + 2 + 2 * (d + 1) if backward else 2
+    return fp, mh + ml
+
+
+def sigmoid_bound(B: int, D: int, d: int, periodic: bool, backward: bool,
+                  params: tuple) -> tuple[float, str, str]:
+    """The least time of one sigmoid-loss kernel: the larger of its
+    unordered pairs' FP32 instructions over the FP32 pipe's rate, their
+    MUFU operations over the MUFU rate, and the bytes (inputs read once,
+    output written once) over the memory rate. Returns ms, ``bound_by`` and
+    the pipe."""
+    pairs = B * (B + 1) // 2
+    fp, mufu = sigmoid_pair_cost(D, d, periodic, backward, params)
+    nbytes = 4 * B * (D + (2 * d if backward else d)) + 4
+    times = {"FP32": pairs * fp / FP32_INSTR_PER_S, "MUFU": pairs * mufu / MUFU_PER_S,
+             "bytes": nbytes / PEAK_BYTES_PER_S}
+    pipe = max(times, key=times.get)
+    return 1e3 * times[pipe], "bytes" if pipe == "bytes" else "operations", pipe
 
 
 def fused_step_ops(dims: list, B: int, d0: int, periodic: bool,
@@ -115,15 +184,63 @@ def sass_sizes(_build, name: str) -> dict:
             for part in text.split("Function : ")[1:]}
 
 
+def ptxas_kernels(text: str) -> dict:
+    """Registers and spilled bytes per kernel from ``-Xptxas -v`` output,
+    by the kernel's name with its template arguments (P, periodic)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            base = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)ELb(\d)E)?", m.group(1))
+            name = base.group(1) if base is None or base.group(2) is None else \
+                f"{base.group(1)}<{base.group(2)}, {base.group(3)}>"
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sigmoid_build_info(_build, text: str) -> None:
+    """Each sigmoid-loss kernel's registers and spills, and the tile
+    kernels' blocks per SM at the widths phase_sigmoid runs (CUDA's
+    occupancy calculator); fails if a tile kernel spills. ``text`` is the
+    library's compiler log, this run's or the one kept beside a library
+    built before."""
+    kernels = ptxas_kernels(text)
+    check(sum(k.startswith("sigmoid_") for k in kernels) == 8,
+          "sigmoid_loss: the compiler log does not list its 8 tile kernels")
+    lib = _build.load_library("sigmoid_loss")
+    for name, info in sorted(kernels.items()):
+        line = f"[build] sigmoid_loss {name}: {info.get('registers')} registers, " \
+               f"{info.get('spill')} bytes spilled"
+        m = re.match(r"sigmoid_(fwd|bwd)_kernel<(\d), (\d)>", name)
+        if m:
+            bwd, tile, periodic = m.group(1) == "bwd", 64 * int(m.group(2)), int(m.group(3))
+            shapes = (4, 30, 128) if periodic else (3,)
+            occ = ", ".join(f"D={D}: {lib.em_sigmoid_occupancy(int(bwd), periodic, tile, D, 2)}"
+                            for D in shapes)
+            line += f"; T={tile}, blocks per SM at d=2 {occ}"
+            check(info.get("spill") == 0, f"{name} spills")
+        log(line)
+
+
 def phase_build(_build) -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"[build] {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc -gencode arch=compute_90a,code=sm_90a)")
     for name, text in logs.items():
+        if name == "sigmoid_loss":
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    sigmoid_build_info(_build, logs.get("sigmoid_loss", ""))
     sizes = sass_sizes(_build, "fused_train_cluster")
     for kernel, n in sizes.items():
         log(f"[build] {kernel}: {n} instructions, {16 * n / 1024:.0f} KB of code")
@@ -131,13 +248,19 @@ def phase_build(_build) -> None:
         log("[build] code size: not measured (no cuobjdump beside nvcc)")
 
 
+SIGMOID_SHAPES = ((3, float("inf")), (4, 2 * math.pi), (30, 2 * math.pi),
+                  (128, 2 * math.pi))
+
+
 def phase_sigmoid(fs, _build) -> dict:
-    """Kernels 2 and 3 against their plain versions at B=16384, d=2."""
+    """Kernels 2 and 3 against their plain versions at B=16384, d=2: cube
+    D=3, dihedral widths 4 and 30, and 128, the width of a dihedral model
+    that only the general route takes (more than 32 input columns). Each
+    kernel must give the same bits on two launches."""
     B, d = 16384, 2
     params = (4.5, 12, 6, 1, 2, 6)
     out = {}
-    for D, periodicity in ((3, float("inf")), (4, 2 * math.pi),
-                           (30, 2 * math.pi)):
+    for D, periodicity in SIGMOID_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(D)
         if math.isfinite(periodicity):
             h = (torch.rand((B, D), generator=g, device="cuda") * 2 - 1) * math.pi
@@ -148,6 +271,8 @@ def phase_sigmoid(fs, _build) -> dict:
         v_p = fs.sigmoid_loss_fwd_plain(h, l, params, periodicity)
         g_k = fs.sigmoid_loss_bwd(h, l, params, periodicity)
         g_p = fs.sigmoid_loss_bwd_plain(h, l, params, periodicity)
+        same = (torch.equal(v_k, fs.sigmoid_loss_fwd(h, l, params, periodicity))
+                and torch.equal(g_k, fs.sigmoid_loss_bwd(h, l, params, periodicity)))
         torch.cuda.synchronize()
         f_abs = abs(float(v_k) - float(v_p))
         f_rel = f_abs / abs(float(v_p))
@@ -157,20 +282,21 @@ def phase_sigmoid(fs, _build) -> dict:
         ms_fp = time_ms(lambda: fs.sigmoid_loss_fwd_plain(h, l, params, periodicity), 3)
         ms_b = time_ms(lambda: fs.sigmoid_loss_bwd(h, l, params, periodicity), 5)
         ms_bp = time_ms(lambda: fs.sigmoid_loss_bwd_plain(h, l, params, periodicity), 3)
-        tag = f"D={D} {'periodic' if math.isfinite(periodicity) else 'euclid'}"
+        periodic = math.isfinite(periodicity)
+        bf = sigmoid_bound(B, D, d, periodic, False, params)
+        bb = sigmoid_bound(B, D, d, periodic, True, params)
+        tag = f"D={D} {'periodic' if periodic else 'euclid'}"
         log(f"[sigmoid {tag}] fwd kernel {float(v_k):.8f} plain {float(v_p):.8f} "
-            f"abs {f_abs:.3e} rel {f_rel:.3e} | {ms_f:.3f} ms (plain {ms_fp:.3f} ms)")
+            f"abs {f_abs:.3e} rel {f_rel:.3e} | {ms_f:.3f} ms (plain {ms_fp:.3f} ms, "
+            f"bound {bf[0]:.4f} ms {bf[2]})")
         log(f"[sigmoid {tag}] bwd max abs {b_abs:.3e} rel-to-max {b_rel:.3e} | "
-            f"{ms_b:.3f} ms (plain {ms_bp:.3f} ms)")
-        # tolerance: f32 sums of 2.7e8 pair terms, and of 16384 terms per
+            f"{ms_b:.3f} ms (plain {ms_bp:.3f} ms, bound {bb[0]:.4f} ms {bb[2]}); "
+            f"two launches bit-identical {same}")
+        # tolerance: f32 sums of 1.3e8 pair terms, and of 16384 terms per
         # gradient row, taken in another order than torch's
         check(f_rel <= 1e-5, f"sigmoid fwd {tag}: rel err {f_rel}")
         check(b_rel <= 1e-4, f"sigmoid bwd {tag}: rel err {b_rel}")
-        periodic = math.isfinite(periodicity)
-        bf = bound_ms(B * B * sigmoid_pair_ops(D, d, periodic, False),
-                      4 * B * (D + d) + 4)
-        bb = bound_ms(B * B * sigmoid_pair_ops(D, d, periodic, True),
-                      4 * B * (D + 2 * d) + 4)
+        check(same, f"sigmoid {tag}: two launches differ")
         out[tag] = dict(fwd=(f_abs, ms_f, ms_fp, bf), bwd=(b_abs, ms_b, ms_bp, bb))
     return out
 
@@ -491,7 +617,29 @@ def phase_general(em, _build, run_dir: Path, sig_ms: float) -> dict:
     log(f"[general] chunk trainer alone: {ms:.3f} ms/step (CUDA events, 2 chunks "
         f"of 3 steps), of which sigmoid kernels fwd+bwd {sig_ms:.3f} ms, the rest "
         f"(MLP, autograd, clip + Adam, batch draw) {ms - sig_ms:.3f} ms")
+    device_split(chunk, ms, 3)
     return counts
+
+
+def device_split(chunk, ms_step: float, steps: int) -> None:
+    """The device's busy time per step over one chunk (torch.profiler's
+    CUDA activities), its idle share against ``ms_step``, and the kernels
+    that take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    if busy == 0:
+        log("[general] device busy time: not measured (the profiler saw no device time)")
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"[general] device busy {busy:.3f} ms/step (torch.profiler, 1 chunk), idle share "
+        f"{1 - busy / ms_step:.3f} of {ms_step:.3f} ms; most device time: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f} ms" for e in top))
 
 
 def main() -> int:

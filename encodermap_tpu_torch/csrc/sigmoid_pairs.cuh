@@ -1,0 +1,205 @@
+// encodermap_tpu_torch/csrc/sigmoid_pairs.cuh
+//
+// The pair math of the sigmoid-loss kernels (sigmoid_loss.cu), with cheap
+// powers. One side's sketch-map sigmoid is
+//
+//   s(r) = 1 - u^e,   u = 1 + c (r/sig)^a,   e = -b/a,   c = 2^(a/b) - 1,
+//
+// and the latent gradient needs s'(r)/r = b c (r/sig)^a u^(e-1) / r^2, which
+// for a = 2 is b c / sig^2 u^(e-1). The exponents are classified once on the
+// host (make_side), so that every power below takes a branch that is the
+// same for every thread, and straight-line code unrolled over a thread's
+// register tile of pairs:
+//
+// * an even integer a: (r/sig)^a = (r^2 / sig^2)^(a/2), by squaring, with
+//   no sqrt (a Euclidean r^2 = 0 still gives s = 0); any other integer a:
+//   (r/sig)^a by squaring after one sqrt; other a: powf.
+// * e = -n (n = 1..16): one reciprocal and products; e = -(n + 1/2): one
+//   reciprocal square root and products; u^(e-1) = u^e / u from the same
+//   reciprocal. Other e: powf.
+//
+// The reciprocal, reciprocal square root and square root are the MUFU
+// unit's approximations, one instruction each: rcp.approx.ftz.f32 and
+// sqrt.approx.ftz.f32 (PTX ISA: about 1 ulp for the normal inputs they get
+// here: u >= 1, periodic r^2 >= 1e-24; a Euclidean r^2 that is zero or
+// subnormal gives r = 0) and rsqrtf (2 ulp, CUDA Programming Guide). The
+// correctly rounded versions add a refinement and a branch to a slow path
+// per value: with them the forward took 23 % (D=3) and 29 % (periodic D=4)
+// longer at B=16384 on an H100.
+//
+// At the default parameters (4.5, 12, 6, 1, 2, 6) that is e = -0.5 on the
+// high-D side (one rsqrtf) and e = -3, e - 1 = -4 on the latent side (one
+// reciprocal), where common.cuh's sig_value takes two powf and a divide.
+// common.cuh keeps its formulas for the fused-train kernels.
+#pragma once
+
+#include <cmath>
+#include <cuda_runtime.h>
+
+enum ExpKind { kPowf = 0, kNegInt = 1, kNegHalf = 2 };
+
+struct SideSig {
+  float inv_sig;   // 1 / sig
+  float inv_sig2;  // 1 / sig^2
+  float a;         // a, for powf
+  float c;         // 2^(a/b) - 1
+  float e;         // -b/a, for powf
+  float dscale;    // b c / sig^2 where a == 2, else b c
+  int half_a;      // a / 2 where a is an even integer in [2, 64], else 0
+  int int_a;       // a where a is an integer in [1, 64], else 0
+  int e_kind;      // ExpKind of e
+  int e_n;         // n of e = -n (kNegInt) or e = -(n + 1/2) (kNegHalf)
+};
+
+inline SideSig make_side(double sig, double a, double b) {
+  SideSig s;
+  const double c = std::pow(2.0, a / b) - 1.0, m = b / a;
+  s.inv_sig = static_cast<float>(1.0 / sig);
+  s.inv_sig2 = static_cast<float>(1.0 / (sig * sig));
+  s.a = static_cast<float>(a);
+  s.c = static_cast<float>(c);
+  s.e = static_cast<float>(-m);
+  s.dscale = static_cast<float>(a == 2.0 ? b * c / (sig * sig) : b * c);
+  const bool integer_a = a == std::floor(a) && a >= 1.0 && a <= 64.0;
+  s.int_a = integer_a ? static_cast<int>(a) : 0;
+  s.half_a = integer_a && s.int_a % 2 == 0 ? s.int_a / 2 : 0;
+  if (m == std::floor(m) && m >= 1.0 && m <= 16.0) {
+    s.e_kind = kNegInt;
+    s.e_n = static_cast<int>(m);
+  } else if (m - 0.5 == std::floor(m - 0.5) && m >= 0.5 && m <= 16.5) {
+    s.e_kind = kNegHalf;
+    s.e_n = static_cast<int>(m - 0.5);
+  } else {
+    s.e_kind = kPowf;
+    s.e_n = 0;
+  }
+  return s;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// x <- x^N for each of the NP values, by repeated squaring in the order
+// jax.lax.integer_pow takes (multiply by the running power at each set bit,
+// lowest bit first), unrolled at compile time.
+template <int N, int NP>
+__device__ __forceinline__ void pow_c(float (&x)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    float base = x[p], acc = 1.f;
+    bool have = false;
+#pragma unroll
+    for (int m = N; m; m >>= 1) {
+      if (m & 1) {
+        acc = have ? acc * base : base;
+        have = true;
+      }
+      if (m > 1) base *= base;
+    }
+    x[p] = acc;
+  }
+}
+
+// x <- x^n (n >= 1). n is the same in every thread: the exponents of the
+// usual parameters (a = 4, 6, 8, 12 and e = -2, -3, -4) take straight-line
+// code (on an H100 a loop with a branch per bit made the forward 27 % slower
+// at the default parameters), others a loop. Few cases keep the code small.
+template <int NP>
+__device__ __forceinline__ void pow_n(float (&x)[NP], int n) {
+  if (n == 1) return;
+  if (n == 2) return pow_c<2>(x);
+  if (n == 3) return pow_c<3>(x);
+  if (n == 4) return pow_c<4>(x);
+  if (n == 6) return pow_c<6>(x);
+  float base[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) base[p] = x[p];
+  bool have = false;
+  for (;;) {
+    if (n & 1) {
+      if (have) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) x[p] *= base[p];
+      } else {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) x[p] = base[p];
+      }
+      have = true;
+    }
+    n >>= 1;
+    if (!n) break;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) base[p] *= base[p];
+  }
+}
+
+// t = (r/sig)^a of each pair, in place, from its squared distance. Periodic
+// distances keep the reference's sqrt and its 1e-12 after the sqrt.
+template <int NP, bool PERIODIC>
+__device__ __forceinline__ void sig_t(const SideSig& s, float (&x)[NP]) {
+  if (!PERIODIC && s.half_a) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) x[p] *= s.inv_sig2;
+    pow_n(x, s.half_a);
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    float r = sqrt_approx(x[p]);
+    if (PERIODIC) r += 1e-12f;
+    x[p] = r * s.inv_sig;
+  }
+  if (s.half_a) {  // x^a = (x^2)^(a/2), the same products
+#pragma unroll
+    for (int p = 0; p < NP; ++p) x[p] *= x[p];
+    pow_n(x, s.half_a);
+  } else if (s.int_a) {
+    pow_n(x, s.int_a);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) x[p] = powf(x[p], s.a);
+  }
+}
+
+// t -> y = u^e in place, u = 1 + c t; iu = 1/u where the class computes it
+// anyway or WANT_IU asks for it (s'(r)/r takes u^(e-1) = y iu).
+template <int NP, bool WANT_IU>
+__device__ __forceinline__ void sig_y(const SideSig& s, float (&x)[NP], float (&iu)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) x[p] = fmaf(s.c, x[p], 1.f);
+  if (s.e_kind == kNegHalf) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float rs = rsqrtf(x[p]);  // 2 ulp
+      iu[p] = rs * rs;
+      x[p] = rs;
+    }
+    if (s.e_n) {
+      float q[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) q[p] = iu[p];
+      pow_n(q, s.e_n);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) x[p] *= q[p];
+    }
+  } else if (s.e_kind == kNegInt) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) x[p] = iu[p] = rcp_approx(x[p]);
+    if (s.e_n > 1) pow_n(x, s.e_n);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      if (WANT_IU) iu[p] = rcp_approx(x[p]);
+      x[p] = powf(x[p], s.e);
+    }
+  }
+}

@@ -82,18 +82,26 @@ def _finish_build(name: str, job) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return log
 
 
 def build_all(names: Optional[list[str]] = None) -> dict[str, str]:
     """Compile every kernel library (or ``names``) that is not built yet,
-    one ``nvcc`` per source, all started together. Returns each build's
-    compiler log (empty for a library that was already built)."""
+    one ``nvcc`` per source, all started together. Returns each library's
+    compiler log, kept beside it for one that was built before (empty where
+    none was kept)."""
     names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
     jobs = {n: _start_build(n) for n in names}
-    return {n: ("" if job is None else _finish_build(n, job))
-            for n, job in jobs.items()}
+    out = {}
+    for n, job in jobs.items():
+        if job is not None:
+            out[n] = _finish_build(n, job)
+        else:
+            kept = _library_path(n).with_suffix(".log")
+            out[n] = kept.read_text() if kept.exists() else ""
+    return out
 
 
 def register(name: str, entry_points: list[tuple]) -> None:

@@ -13,10 +13,13 @@ too):
 
 Kernels (``csrc/sigmoid_loss.cu``): the forward pass replaces
 ``pallas_sigmoid.py::_fwd_kernel``, the backward pass ``::_bwd_kernel``.
-Both take distances by direct per-component differences, keep the periodic
-guards (1e-12 per exactly-zero component and after the sqrt) and work for any
-batch size and width. Their plain versions, :func:`sigmoid_loss_fwd_plain`
-and :func:`sigmoid_loss_bwd_plain`, compute the same formulas densely.
+Both evaluate each unordered pair once, in upper-triangular tiles of the
+pair matrix, take distances by direct per-component differences, keep the
+periodic guards (1e-12 per exactly-zero component and after the sqrt) and
+work for any batch size, input width and latent width. Each sum is taken in
+a fixed order, so a kernel gives the same bits on every launch. Their plain
+versions, :func:`sigmoid_loss_fwd_plain` and :func:`sigmoid_loss_bwd_plain`,
+compute the same formulas densely.
 
 :func:`fused_sigmoid_loss` launches the kernels for CUDA tensors and runs the
 plain versions only for CPU tensors. :func:`fused_or_reference` routes every
@@ -62,11 +65,13 @@ __all__ = [
 _LIB = "sigmoid_loss"
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _build.register(_LIB, [
+    ("em_sigmoid_occupancy", [_I, _I, _I, _I, _I]),
     ("em_sigmoid_fwd_workspace", [_I]),
+    ("em_sigmoid_bwd_workspace", [_I, _I], ctypes.c_longlong),
     ("em_sigmoid_fwd", [_P, _P, _I, _I, _I, _D, _D, _D, _D, _D, _D, _D, _I,
                         _P, _P, _P]),
     ("em_sigmoid_bwd", [_P, _P, _I, _I, _I, _D, _D, _D, _D, _D, _D, _D, _I,
-                        _P, _P, _P]),
+                        _P, _P, _P, _P]),
 ])
 
 
@@ -166,8 +171,10 @@ def sigmoid_loss_bwd(h, l, params, periodicity, grad_output=None
         grad_output = torch.ones((), dtype=torch.float32, device=h.device)
     gout = grad_output.to(torch.float32).reshape(1).contiguous()
     grad = torch.empty_like(l)
-    err = lib.em_sigmoid_bwd(*args, gout.data_ptr(), grad.data_ptr(),
-                             _build.stream_ptr())
+    ws = torch.empty(lib.em_sigmoid_bwd_workspace(h.shape[0], l.shape[1]),
+                     dtype=torch.float32, device=h.device)
+    err = lib.em_sigmoid_bwd(*args, gout.data_ptr(), ws.data_ptr(),
+                             grad.data_ptr(), _build.stream_ptr())
     _build.launch_counts["sigmoid_bwd"] += 1
     _build.check_cuda(lib, err, "em_sigmoid_bwd")
     return grad

@@ -41,27 +41,66 @@ def _hl(B, D, d, periodic, seed):
     h = (torch.rand((B, D), generator=g) * 2 - 1) * math.pi if periodic else \
         torch.randn((B, D), generator=g)
     l = torch.randn((B, d), generator=g)
-    h[1], l[1] = h[0], l[0]  # a duplicate point
-    l[5] = l[4]  # same latent point, different inputs
+    if B > 5:
+        h[1], l[1] = h[0], l[0]  # a duplicate point
+        l[5] = l[4]  # same latent point, different inputs
     return h, l
 
 
-@pytest.mark.parametrize("params", SIG, ids=["a_l=2", "a_l=3"])
-@pytest.mark.parametrize("B,D,d,periodicity", [
-    (1000, 7, 2, float("inf")), (1000, 7, 2, 2 * math.pi),
-    (777, 40, 3, 2 * math.pi), (300, 3, 6, float("inf"))])
-def test_sigmoid_kernels_match_plain(cuda, params, B, D, d, periodicity):
-    """Ragged batch sizes, widths over one 16-column chunk, latent dims over
-    one 4-component group."""
-    from encodermap_tpu_torch.ops import fused_sigmoid as fs
-
-    h, l = (t.to(cuda) for t in _hl(B, D, d, math.isfinite(periodicity), B + D))
+def _check_sigmoid(fs, h, l, params, periodicity):
     v_k = fs.sigmoid_loss_fwd(h, l, params, periodicity)
     v_p = fs.sigmoid_loss_fwd_plain(h, l, params, periodicity)
     g_k = fs.sigmoid_loss_bwd(h, l, params, periodicity)
     g_p = fs.sigmoid_loss_bwd_plain(h, l, params, periodicity)
     assert abs(float(v_k) - float(v_p)) <= 1e-5 * abs(float(v_p))
     assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
+
+
+@pytest.mark.parametrize("params", SIG, ids=["a_l=2", "a_l=3"])
+@pytest.mark.parametrize("B,D,d,periodicity", [
+    (1000, 7, 2, float("inf")), (1000, 7, 2, 2 * math.pi),
+    (777, 40, 3, 2 * math.pi), (300, 3, 6, float("inf")),
+    (1, 3, 2, float("inf")), (2, 3, 2, 2 * math.pi), (65, 7, 2, float("inf")),
+    (129, 7, 3, 2 * math.pi), (500, 5, 10, float("inf")),
+    (1000, 128, 2, 2 * math.pi), (4500, 7, 3, float("inf")),
+    (4500, 3, 100, float("inf")), (33, 3, 33, 2 * math.pi),
+    (300, 5, 200, 2 * math.pi), (70, 40, 1000, float("inf"))])
+def test_sigmoid_kernels_match_plain(cuda, params, B, D, d, periodicity):
+    """Ragged batch sizes and tile edges (1, 2, 65, 129), widths over one
+    32-column chunk (40, 128), a ragged 128-wide tile (4500), latent dims
+    up to 10, and wider ones that are restaged per pass like a wide input
+    (33, 100, 200, 1000; the backward takes 64-wide tiles for them, also at
+    a batch where the forward takes 128); the two parameter sets take the
+    cheap powers (e = -0.5, -3) and powf."""
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+
+    h, l = (t.to(cuda) for t in _hl(B, D, d, math.isfinite(periodicity), B + D))
+    _check_sigmoid(fs, h, l, params, periodicity)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("periodicity", [float("inf"), 2 * math.pi])
+def test_sigmoid_kernels_match_plain_at_each_tile_edge(cuda, tile, periodicity):
+    """Both tile edges, each at a batch that takes it and leaves a ragged
+    last tile: B = 1000 takes 64 (36 tiles of 128 would not fill the card),
+    B = 4500 takes 128."""
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+
+    B = {64: 1000, 128: 4500}[tile]
+    h, l = (t.to(cuda) for t in _hl(B, 7, 3, math.isfinite(periodicity), tile))
+    _check_sigmoid(fs, h, l, SIG[0], periodicity)
+
+
+@pytest.mark.parametrize("B", [1000, 4500], ids=["B=1000", "B=4500"])
+def test_sigmoid_kernels_are_bit_reproducible(cuda, B):
+    """Every sum has a fixed order (no float atomics): two launches of each
+    kernel give the same bits."""
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+
+    h, l = (t.to(cuda) for t in _hl(B, 9, 2, True, 7))
+    args = (h, l, SIG[0], 2 * math.pi)
+    assert torch.equal(fs.sigmoid_loss_fwd(*args), fs.sigmoid_loss_fwd(*args))
+    assert torch.equal(fs.sigmoid_loss_bwd(*args), fs.sigmoid_loss_bwd(*args))
 
 
 def test_sigmoid_autograd_through_kernels(cuda):

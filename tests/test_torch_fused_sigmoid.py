@@ -9,6 +9,13 @@ XLA path, for values and latent gradients, a != 2 sigmoids and duplicate
 points. The CUDA kernels themselves are compared with the plain versions on
 the card by tests/test_torch_cuda.py and chip_smoke.py.
 
+A numpy mirror of the CUDA kernels' schedule (``csrc/sigmoid_loss.cu``) is
+held against the same two JAX references: upper-triangular T x T tiles of the
+pair matrix, each unordered pair evaluated once with the kernels' cheap
+powers, the forward's per-tile partial (twice the off-diagonal sum plus the
+diagonal), and the backward's row and column partials written to (row,
+partner tile) slots and added per row in tile order.
+
 Tolerances: the JAX kernel takes distances by the Gram identity, the port by
 direct differences; over B = 512 pairs of 30-wide rows that costs up to
 ~1e-5 relative on the value and 1e-4 relative (to the largest entry) on the
@@ -16,6 +23,7 @@ latent gradient, the bounds tests/test_pallas_sigmoid.py itself holds the
 JAX kernel to against the XLA path. Against the XLA path at small B (same
 formulas) values agree to 1e-6 and gradients to 1e-5."""
 
+import functools
 import math
 
 import jax
@@ -33,6 +41,12 @@ from encodermap_tpu_torch.ops import fused_sigmoid as fs
 torch.set_num_threads(1)
 
 PARAMS = [(5.9, 12.0, 4.0, 1.0, 2.0, 4.0), (4.5, 6.0, 10.0, 1.0, 3.0, 7.0)]
+#: one parameter set per class of the kernels' outer exponent e = -b/a on
+#: the (high-D, latent) sides: half-integer and integer (the defaults),
+#: powf and integer, powf on both (an odd a on the latent side)
+CLASSES = {"e=-0.5,-3": (4.5, 12.0, 6.0, 1.0, 2.0, 6.0),
+           "e=-1/3,-2": PARAMS[0],
+           "powf": PARAMS[1]}
 
 
 @pytest.fixture
@@ -40,11 +54,11 @@ def interpret(monkeypatch):
     monkeypatch.setattr(ps, "_INTERPRET", True)
 
 
-def _data(B, D, periodic, seed=0, duplicate=False):
+def _data(B, D, periodic, seed=0, duplicate=False, d=2):
     rng = np.random.default_rng(seed)
     h = (rng.uniform(-np.pi, np.pi, (B, D)) if periodic
          else rng.normal(size=(B, D))).astype(np.float32)
-    l = rng.normal(size=(B, 2)).astype(np.float32)
+    l = rng.normal(size=(B, d)).astype(np.float32)
     if duplicate:
         h[1], l[1] = h[0], l[0]
         l[3] = l[2]  # same latent point, different inputs
@@ -124,3 +138,178 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     assert dict(_build.launch_counts) == before  # no kernel launched
     with pytest.raises(ValueError):
         fs.sigmoid_loss_fwd(ht[:5], lt, PARAMS[1], float("inf"))
+
+
+# ------------------------------------------- numpy mirror of the kernels
+F32 = np.float32
+
+
+def _pow_n(x, n):
+    """x**n by squaring, in the order the kernels (and integer_pow) take."""
+    acc, base = None, x
+    while True:
+        if n & 1:
+            acc = base if acc is None else acc * base
+        n >>= 1
+        if not n:
+            return acc
+        base = base * base
+
+
+def _side(sig, a, b):
+    """The host's classification of one side's exponents (make_side)."""
+    m = b / a
+    integer_a = a == math.floor(a) and 1 <= a <= 64
+    if m == math.floor(m) and 1 <= m <= 16:
+        kind = ("int", int(m))
+    elif m - 0.5 == math.floor(m - 0.5) and 0.5 <= m <= 16.5:
+        kind = ("half", int(m - 0.5))
+    else:
+        kind = ("powf", 0)
+    return dict(sig=sig, a=a, b=b, c=F32(2.0 ** (a / b) - 1.0), e=F32(-m),
+                int_a=int(a) if integer_a else 0,
+                half_a=int(a) // 2 if integer_a and int(a) % 2 == 0 else 0,
+                kind=kind)
+
+
+def _sig_t(s, d2, periodic):
+    """(r/sig)**a from squared distances: no sqrt for an even a (Euclidean)."""
+    if not periodic and s["half_a"]:
+        return _pow_n(d2 * F32(1.0 / s["sig"] ** 2), s["half_a"])
+    r = np.sqrt(d2)
+    if periodic:
+        r = r + F32(1e-12)
+    x = r * F32(1.0 / s["sig"])
+    return _pow_n(x, s["int_a"]) if s["int_a"] else np.power(x, F32(s["a"]))
+
+
+def _sig_y(s, t):
+    """(u**e, 1/u) with u = 1 + c t: reciprocal or rsqrt and products."""
+    u = F32(1) + s["c"] * t
+    kind, n = s["kind"]
+    if kind == "half":
+        rs = F32(1) / np.sqrt(u)
+        iu = rs * rs
+        return (rs * _pow_n(iu, n) if n else rs), iu
+    iu = F32(1) / u
+    if kind == "int":
+        return _pow_n(iu, n), iu
+    return np.power(u, s["e"]), iu
+
+
+def _tile_terms(h, l, ri, rj, sh, sl, periodicity):
+    """(y_h, y_l, d_l^2, s_l'(r)/r) of the pairs ri x rj, in float32."""
+    periodic = math.isfinite(periodicity)
+    dh2 = np.zeros((len(ri), len(rj)), F32)
+    for k in range(h.shape[1]):
+        t = h[ri, k][:, None] - h[rj, k][None, :]
+        if periodic:
+            t = np.abs(t)
+            t = np.minimum(t, F32(periodicity) - t)
+            t = np.where(t == 0, F32(1e-12), t)
+        dh2 = dh2 + t * t
+    dl2 = np.zeros_like(dh2)
+    for k in range(l.shape[1]):
+        t = l[ri, k][:, None] - l[rj, k][None, :]
+        dl2 = dl2 + t * t
+    yh, _ = _sig_y(sh, _sig_t(sh, dh2, periodic))
+    tl = _sig_t(sl, dl2, False)
+    yl, iu = _sig_y(sl, tl)
+    sig_l, a_l, b_l = sl["sig"], sl["a"], sl["b"]
+    c = 2.0 ** (a_l / b_l) - 1.0
+    if a_l == 2:
+        g = F32(b_l * c / sig_l ** 2) * yl * iu
+    else:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            g = F32(b_l * c) * yl * iu * tl * (F32(1) / dl2)
+    return yh, yl, dl2, g
+
+
+def _mirror(h, l, params, periodicity, T):
+    """Loss and latent gradient as the kernels schedule them."""
+    n, d = l.shape
+    sh, sl = _side(*params[:3]), _side(*params[3:])
+    nt = -(-n // T)
+    weights = np.concatenate([np.ones((n, 1), F32), l], axis=1)  # v = 0..d
+    partials = []
+    ws = np.full((nt, d + 1, n), np.nan, F32)
+    for I in range(nt):
+        for J in range(I, nt):
+            ri = np.arange(I * T, min(I * T + T, n))
+            rj = np.arange(J * T, min(J * T + T, n))
+            yh, yl, dl2, g = _tile_terms(h, l, ri, rj, sh, sl, periodicity)
+            diag = I == J
+            upper = ri[:, None] < rj[None, :]
+            w = (np.where(upper, F32(2), np.where(ri[:, None] == rj[None, :], F32(1),
+                                                   F32(0))) if diag else F32(2))
+            partials.append(np.sum(w * (yl - yh) ** 2, dtype=F32))
+            keep = (dl2 != 0) & (upper if diag else True)
+            f = np.where(keep, (yh - yl) * g, F32(0)).astype(F32)
+            rows = f @ weights[rj]    # row partials of the I rows
+            cols = f.T @ weights[ri]  # column partials of the J rows
+            if diag:
+                assert np.isnan(ws[I][:, ri]).all()
+                ws[I][:, ri] = (rows + cols).T
+            else:
+                assert np.isnan(ws[J][:, ri]).all() and np.isnan(ws[I][:, rj]).all()
+                ws[J][:, ri] = rows.T
+                ws[I][:, rj] = cols.T
+    assert not np.isnan(ws).any()  # every (row, partner tile) slot once
+    assert len(partials) == nt * (nt + 1) // 2
+    loss = float(np.sum(np.asarray(partials, np.float64))) / (n * n)
+    slots = ws[0]
+    for t in range(1, nt):  # tile order
+        slots = slots + ws[t]
+    grad = F32(4.0 / (n * n)) * (slots[0][:, None] * l - slots[1:].T)
+    return loss, grad
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_interpret(params, periodicity, d):
+    h, l = _data(512, 30, math.isfinite(periodicity), seed=d, duplicate=True, d=d)
+    ps._INTERPRET = True
+    try:
+        val, g = jax.value_and_grad(
+            lambda x: ps.fused_sigmoid_loss(jnp.asarray(h), x, params, periodicity))(
+            jnp.asarray(l))
+    finally:
+        ps._INTERPRET = False
+    return h, l, float(val), np.asarray(g)
+
+
+@pytest.mark.parametrize("cls", list(CLASSES))
+@pytest.mark.parametrize("periodicity", [float("inf"), 2 * math.pi])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("T", [128, 96], ids=["T=128", "T=96-ragged"])
+def test_kernel_schedule_matches_jax_pallas_interpret(cls, periodicity, d, T):
+    """B = 512 (the JAX kernel's multiple); T = 96 leaves a ragged last tile."""
+    h, l, val_j, g_j = _jax_interpret(CLASSES[cls], periodicity, d)
+    val_m, g_m = _mirror(h, l, CLASSES[cls], periodicity, T)
+    assert abs(val_m - val_j) <= 1e-5 * abs(val_j)
+    assert np.isfinite(g_m).all()
+    assert np.abs(g_m - g_j).max() <= 1e-4 * np.abs(g_j).max()
+
+
+@pytest.mark.parametrize("cls", list(CLASSES))
+@pytest.mark.parametrize("periodicity", [float("inf"), 2 * math.pi])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("B", [300, 50], ids=["B=300", "B=50-one-tile"])
+def test_kernel_schedule_matches_jax_xla_path(cls, periodicity, d, B):
+    """Three 128-tiles with a ragged last one, and one tile of 50 rows."""
+    h, l = _data(B, 6, math.isfinite(periodicity), seed=B + d, duplicate=True, d=d)
+    val_j, g_j = jax.value_and_grad(
+        lambda x: JL.sigmoid_loss(jnp.asarray(h), x, CLASSES[cls], periodicity))(
+        jnp.asarray(l))
+    val_m, g_m = _mirror(h, l, CLASSES[cls], periodicity, 128)
+    np.testing.assert_allclose(val_m, float(val_j), rtol=1e-6)
+    np.testing.assert_allclose(g_m, np.asarray(g_j), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("cls", list(CLASSES))
+def test_exponent_classes(cls):
+    """The host's classification: which power each side's sigmoid takes."""
+    sh, sl = _side(*CLASSES[cls][:3]), _side(*CLASSES[cls][3:])
+    expect = {"e=-0.5,-3": (("half", 0), 6, ("int", 3), 1),
+              "e=-1/3,-2": (("powf", 0), 6, ("int", 2), 1),
+              "powf": (("powf", 0), 3, ("powf", 0), 0)}[cls]
+    assert (sh["kind"], sh["half_a"], sl["kind"], sl["half_a"]) == expect
