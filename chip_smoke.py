@@ -9,7 +9,12 @@ PyTorch version on the card (both fused train kernels, the cluster kernel
 and the grid kernel, at the main configuration, and the grid kernel where
 the router sends it, at fused batch 1024), drives EncoderMap training end to
 end through the kernels (fused route on cube and on periodic dihedral data,
-general route at batch 16384), and checks what comes out. Prints one JSON line per kernel
+general route at batch 16384), drives the AngleDihedralCartesianEncoderMap
+(ADC) trainer on synthetic backbones at trp-cage scale (20 residues, the
+full width of BASELINE config 3), at 158 residues (the CA distance-matrix
+rows, 24,964 wide, on the sigmoid-loss kernels) and at 512 residues (the
+analytic Cartesian route), holds the sigmoid-loss kernels against their
+plain versions at each ADC width, and checks what comes out. Prints one JSON line per kernel
 set before the last line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed. Without a CUDA card it exits
@@ -252,11 +257,51 @@ SIGMOID_SHAPES = ((3, float("inf")), (4, 2 * math.pi), (30, 2 * math.pi),
                   (128, 2 * math.pi))
 
 
+def hold_sigmoid(fs, h, l, params: tuple, periodicity: float, label: str,
+                 reps: int = 5, plain_reps: int = 3, plain_warmup: int = 1) -> dict:
+    """Kernels 2 and 3 against their plain versions on ``(h, l)``: the loss
+    to 1e-5 relative and the latent gradient to 1e-4 of its largest entry
+    (f32 sums of B(B+1)/2 pair terms, and of B terms per gradient row, in
+    another order than torch's), and the same bits on two launches. Times
+    both by CUDA events; returns (abs err, ms, plain ms, bound) per
+    direction."""
+    (B, D), d = h.shape, l.shape[1]
+    periodic = math.isfinite(periodicity)
+    v_k = fs.sigmoid_loss_fwd(h, l, params, periodicity)
+    v_p = fs.sigmoid_loss_fwd_plain(h, l, params, periodicity)
+    g_k = fs.sigmoid_loss_bwd(h, l, params, periodicity)
+    g_p = fs.sigmoid_loss_bwd_plain(h, l, params, periodicity)
+    same = (torch.equal(v_k, fs.sigmoid_loss_fwd(h, l, params, periodicity))
+            and torch.equal(g_k, fs.sigmoid_loss_bwd(h, l, params, periodicity)))
+    torch.cuda.synchronize()
+    f_abs = abs(float(v_k) - float(v_p))
+    f_rel = f_abs / abs(float(v_p))
+    b_abs = float((g_k - g_p).abs().max())
+    b_rel = b_abs / float(g_p.abs().max())
+    ms_f = time_ms(lambda: fs.sigmoid_loss_fwd(h, l, params, periodicity), reps)
+    ms_fp = time_ms(lambda: fs.sigmoid_loss_fwd_plain(h, l, params, periodicity),
+                    plain_reps, plain_warmup)
+    ms_b = time_ms(lambda: fs.sigmoid_loss_bwd(h, l, params, periodicity), reps)
+    ms_bp = time_ms(lambda: fs.sigmoid_loss_bwd_plain(h, l, params, periodicity),
+                    plain_reps, plain_warmup)
+    bf = sigmoid_bound(B, D, d, periodic, False, params)
+    bb = sigmoid_bound(B, D, d, periodic, True, params)
+    log(f"[{label}] fwd kernel {float(v_k):.8f} plain {float(v_p):.8f} "
+        f"abs {f_abs:.3e} rel {f_rel:.3e} | {ms_f:.4f} ms (plain {ms_fp:.3f} ms, "
+        f"bound {bf[0]:.5f} ms {bf[2]})")
+    log(f"[{label}] bwd max abs {b_abs:.3e} rel-to-max {b_rel:.3e} | "
+        f"{ms_b:.4f} ms (plain {ms_bp:.3f} ms, bound {bb[0]:.5f} ms {bb[2]}); "
+        f"two launches bit-identical {same}")
+    check(f_rel <= 1e-5, f"{label} fwd: rel err {f_rel}")
+    check(b_rel <= 1e-4, f"{label} bwd: rel err {b_rel}")
+    check(same, f"{label}: two launches differ")
+    return dict(fwd=(f_abs, ms_f, ms_fp, bf), bwd=(b_abs, ms_b, ms_bp, bb))
+
+
 def phase_sigmoid(fs, _build) -> dict:
     """Kernels 2 and 3 against their plain versions at B=16384, d=2: cube
     D=3, dihedral widths 4 and 30, and 128, the width of a dihedral model
-    that only the general route takes (more than 32 input columns). Each
-    kernel must give the same bits on two launches."""
+    that only the general route takes (more than 32 input columns)."""
     B, d = 16384, 2
     params = (4.5, 12, 6, 1, 2, 6)
     out = {}
@@ -267,37 +312,8 @@ def phase_sigmoid(fs, _build) -> dict:
         else:
             h = torch.rand((B, D), generator=g, device="cuda")
         l = torch.randn((B, d), generator=g, device="cuda")
-        v_k = fs.sigmoid_loss_fwd(h, l, params, periodicity)
-        v_p = fs.sigmoid_loss_fwd_plain(h, l, params, periodicity)
-        g_k = fs.sigmoid_loss_bwd(h, l, params, periodicity)
-        g_p = fs.sigmoid_loss_bwd_plain(h, l, params, periodicity)
-        same = (torch.equal(v_k, fs.sigmoid_loss_fwd(h, l, params, periodicity))
-                and torch.equal(g_k, fs.sigmoid_loss_bwd(h, l, params, periodicity)))
-        torch.cuda.synchronize()
-        f_abs = abs(float(v_k) - float(v_p))
-        f_rel = f_abs / abs(float(v_p))
-        b_abs = float((g_k - g_p).abs().max())
-        b_rel = b_abs / float(g_p.abs().max())
-        ms_f = time_ms(lambda: fs.sigmoid_loss_fwd(h, l, params, periodicity), 5)
-        ms_fp = time_ms(lambda: fs.sigmoid_loss_fwd_plain(h, l, params, periodicity), 3)
-        ms_b = time_ms(lambda: fs.sigmoid_loss_bwd(h, l, params, periodicity), 5)
-        ms_bp = time_ms(lambda: fs.sigmoid_loss_bwd_plain(h, l, params, periodicity), 3)
-        periodic = math.isfinite(periodicity)
-        bf = sigmoid_bound(B, D, d, periodic, False, params)
-        bb = sigmoid_bound(B, D, d, periodic, True, params)
-        tag = f"D={D} {'periodic' if periodic else 'euclid'}"
-        log(f"[sigmoid {tag}] fwd kernel {float(v_k):.8f} plain {float(v_p):.8f} "
-            f"abs {f_abs:.3e} rel {f_rel:.3e} | {ms_f:.3f} ms (plain {ms_fp:.3f} ms, "
-            f"bound {bf[0]:.4f} ms {bf[2]})")
-        log(f"[sigmoid {tag}] bwd max abs {b_abs:.3e} rel-to-max {b_rel:.3e} | "
-            f"{ms_b:.3f} ms (plain {ms_bp:.3f} ms, bound {bb[0]:.4f} ms {bb[2]}); "
-            f"two launches bit-identical {same}")
-        # tolerance: f32 sums of 1.3e8 pair terms, and of 16384 terms per
-        # gradient row, taken in another order than torch's
-        check(f_rel <= 1e-5, f"sigmoid fwd {tag}: rel err {f_rel}")
-        check(b_rel <= 1e-4, f"sigmoid bwd {tag}: rel err {b_rel}")
-        check(same, f"sigmoid {tag}: two launches differ")
-        out[tag] = dict(fwd=(f_abs, ms_f, ms_fp, bf), bwd=(b_abs, ms_b, ms_bp, bb))
+        tag = f"D={D} {'periodic' if math.isfinite(periodicity) else 'euclid'}"
+        out[tag] = hold_sigmoid(fs, h, l, params, periodicity, f"sigmoid {tag}")
     return out
 
 
@@ -617,14 +633,16 @@ def phase_general(em, _build, run_dir: Path, sig_ms: float) -> dict:
     log(f"[general] chunk trainer alone: {ms:.3f} ms/step (CUDA events, 2 chunks "
         f"of 3 steps), of which sigmoid kernels fwd+bwd {sig_ms:.3f} ms, the rest "
         f"(MLP, autograd, clip + Adam, batch draw) {ms - sig_ms:.3f} ms")
-    device_split(chunk, ms, 3)
+    device_split(chunk, ms, 3, "general")
     return counts
 
 
-def device_split(chunk, ms_step: float, steps: int) -> None:
+def device_split(chunk, ms_step: float, steps: int, tag: str) -> float:
     """The device's busy time per step over one chunk (torch.profiler's
-    CUDA activities), its idle share against ``ms_step``, and the kernels
-    that take the most of it."""
+    CUDA activities), its idle share against ``ms_step``, the device
+    operations (kernels and copies) per step, and the kernels that take
+    the most of it; returns the busy ms per step (0 if the profiler saw no
+    device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -634,12 +652,248 @@ def device_split(chunk, ms_step: float, steps: int) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
     if busy == 0:
-        log("[general] device busy time: not measured (the profiler saw no device time)")
-        return
+        log(f"[{tag}] device busy time: not measured (the profiler saw no device time)")
+        return 0.0
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"[general] device busy {busy:.3f} ms/step (torch.profiler, 1 chunk), idle share "
-        f"{1 - busy / ms_step:.3f} of {ms_step:.3f} ms; most device time: " + "; ".join(
+    ops = sum(e.count for e in events) / steps
+    log(f"[{tag}] device busy {busy:.3f} ms/step (torch.profiler, 1 chunk), idle share "
+        f"{1 - busy / ms_step:.3f} of {ms_step:.3f} ms, {ops:.0f} device operations a "
+        f"step; most device time: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f} ms" for e in top))
+    return busy
+
+
+# ----------------------------------------------------------------- ADC
+ADC_SIG = (4.5, 12, 6, 1, 2, 6)  # ADCParameters' default sigmoid parameters
+CV_KEYS = ("central_angles", "central_dihedrals", "central_cartesians",
+           "central_distances", "side_dihedrals")
+
+
+def adc_cvs(n_res: int, n_frames: int, seed: int = 0) -> dict:
+    """Synthetic ADC CVs as bench.py builds them: random bond angles,
+    dihedrals, bond lengths and side dihedrals from ``seed`` with numpy,
+    and the coordinates backmapped from them (the port's backmap, float64,
+    on the card)."""
+    from encodermap_tpu_torch.ops.backmap import backmap
+
+    rng = np.random.default_rng(seed)
+    n_atoms = 3 * n_res
+    ang = rng.uniform(1.6, 2.4, (n_frames, n_atoms - 2))
+    dih = rng.uniform(-np.pi, np.pi, (n_frames, n_atoms - 3))
+    dist = rng.uniform(0.13, 0.155, (n_frames, n_atoms - 1))
+    with torch.no_grad():
+        cart = backmap(*(torch.tensor(x, device="cuda") for x in (dist, ang, dih)))
+    side = rng.uniform(-np.pi, np.pi, (n_frames, 2 * n_res))
+    return {k: np.asarray(v, np.float32) for k, v in zip(
+        CV_KEYS, (ang, dih, cart.cpu().numpy(), dist, side))}
+
+
+def adc_params(em, run_dir: Path, n_steps: int, steps_per_scan: int, **kw):
+    """BASELINE config 3 at full width: [128,128,2], B=256, CA costs
+    (``cartesian_pwd_start=1, step=3``), angles and sidechains trained, and
+    the encoder input's sketch-map cost on (``distance_cost_scale=1``; the
+    reference's ADC default leaves it off), so that a step runs both
+    sigmoid losses."""
+    return em.ADCParameters(main_path=str(run_dir), n_neurons=[128, 128, 2],
+                            batch_size=256, n_steps=n_steps,
+                            steps_per_scan=steps_per_scan, seed=0,
+                            cartesian_pwd_start=1, cartesian_pwd_step=3,
+                            use_backbone_angles=True, use_sidechains=True,
+                            distance_cost_scale=1.0, **kw)
+
+
+def adc_kernel_inputs(emap, cvs: dict, rows: np.ndarray) -> dict:
+    """The sigmoid kernels' inputs of one ADC batch, by (D, periodicity,
+    params): the encoder-input angles, dihedrals and side dihedrals
+    (periodic), and the CA pair distances, flat below 64 CAs, else the
+    full matrix rows with the sqrt(2) sigma."""
+    from encodermap_tpu_torch.models import adc
+    from encodermap_tpu_torch.ops.distances import pairwise_dist
+
+    batch = tuple(torch.tensor(cvs[k][rows], device="cuda") for k in CV_KEYS)
+    with torch.no_grad():
+        latent = adc.encode(emap.state.params, emap.p, batch).contiguous()
+        enc_inp = torch.cat([batch[0], batch[1], batch[4]], dim=1)
+        ca = batch[2][:, 1::3]
+        if ca.shape[1] < 64:
+            pairs, params = pairwise_dist(ca, flat=True), ADC_SIG
+        else:
+            pairs = pairwise_dist(ca).reshape(len(rows), -1).contiguous()
+            params = (ADC_SIG[0] * math.sqrt(2.0),) + ADC_SIG[1:]
+    return {(enc_inp.shape[1], 2 * math.pi): (enc_inp, latent, ADC_SIG),
+            (pairs.shape[1], float("inf")): (pairs, latent, params)}
+
+
+def adc_kernel_check(fs, inputs: dict, tag: str, reps: int = 5) -> dict:
+    """Kernels 2 and 3 against their plain versions at the ADC shapes; the
+    plain versions once each (the plain forward at D = 158^2 is ~75k
+    launches)."""
+    out = {}
+    for (D, periodicity), (h, l, params) in inputs.items():
+        periodic = math.isfinite(periodicity)
+        label = f"{tag} sigmoid B={h.shape[0]} D={D} {'periodic' if periodic else 'euclid'}"
+        out[D, periodic] = hold_sigmoid(fs, h, l, params, periodicity, label, reps=reps,
+                                        plain_reps=1, plain_warmup=0)
+    return out
+
+
+def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int) -> tuple:
+    """``train()`` with the launch counts set to 0 just before and read just
+    after: the sigmoid kernels must launch ``per_step`` times a step each,
+    the fused train kernels never. Returns (emap, history, counts, s)."""
+    emap = em.AngleDihedralCartesianEncoderMap(cvs, p)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    hist = emap.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    want = per_step * p.n_steps
+    check(counts.get("sigmoid_fwd", 0) == want and counts.get("sigmoid_bwd", 0) == want,
+          f"{tag}: sigmoid kernels launched {counts}, expected {want} each")
+    check(counts.get("fused_train", 0) == 0 and counts.get("fused_train_cluster", 0) == 0,
+          f"{tag}: a fused train kernel ran")
+    check(bool(np.isfinite(hist["loss"]).all()), f"{tag}: non-finite loss")
+    log(f"[{tag}] launches {counts} in {p.n_steps} steps; loss {hist['loss'][0]:.4f} -> "
+        f"{hist['loss'][-1]:.4f}; train() {wall:.2f} s, {p.n_steps * p.batch_size / wall:.0f} "
+        f"samples/s")
+    return emap, hist, counts, wall
+
+
+def phase_adc(em, fs, _build, run_dir: Path) -> dict:
+    """The ADC trainer at trp-cage scale (BASELINE config 3): 20 residues,
+    4096 frames, three chunks of 100 steps, the Cartesian cost soft-started
+    over steps 0-50. Checks the kernels' launches, the loss, the soft start,
+    generate's bond lengths and a checkpoint round trip; times the step and
+    its stages; holds the kernels at this leg's shapes."""
+    from encodermap_tpu_torch import losses as L
+    from encodermap_tpu_torch.ops.backmap import backmap
+    from encodermap_tpu_torch.ops.distances import pairwise_dist
+
+    cvs = adc_cvs(20, 4096)
+    p = adc_params(em, run_dir, 300, 100, cartesian_cost_scale_soft_start=(0, 50))
+    emap, hist, counts, wall = adc_train(em, _build, cvs, p, "adc", 2)
+    scale = hist["cartesian_cost_scale"]
+    check(np.allclose(scale, np.clip(np.arange(300) / 50, 0, 1), atol=1e-6),
+          "adc: the soft-start scale is not in the history as (0, 50) sets it")
+    chunks = hist["loss"].reshape(3, 100).mean(1)
+    dih = hist["dihedral_loss"].reshape(3, 100).mean(1)
+    log(f"[adc] chunk mean loss {chunks.round(4).tolist()}, dihedral loss "
+        f"{dih.round(4).tolist()}; soft-start scale {scale[0]:.2f} -> {scale[-1]:.2f}")
+    check(chunks[2] < chunks[1] and dih[2] < dih[0], "adc: the loss did not fall")
+
+    latent = emap.encode()
+    xyz = emap.generate(latent[:64])
+    bonds = np.linalg.norm(np.diff(xyz, axis=1), axis=-1)
+    bond_err = float(np.abs(bonds - cvs["central_distances"].mean(0)).max())
+    log(f"[adc] generate {xyz.shape}, bond lengths within {bond_err:.2e} nm of the "
+        f"training set's means")
+    check(xyz.shape == (64, 60, 3) and np.isfinite(xyz).all(), "adc: generate shape")
+    check(bond_err <= 1e-4, "adc: generated bond lengths off the training means")
+    again = em.AngleDihedralCartesianEncoderMap.from_checkpoint(cvs, run_dir)
+    check(np.array_equal(again.encode(), latent), "adc: reloaded checkpoint encodes "
+          "differently")
+    log("[adc] checkpoint reload encodes identically")
+
+    trainer, dev_data, state = emap._get_trainer(), emap._device_data(), emap.state
+
+    def chunk():
+        nonlocal state
+        state, _ = trainer(state, dev_data)
+
+    ms = time_ms(chunk, 2, warmup=1) / 100
+    busy = device_split(chunk, ms, 100, "adc")
+    log(f"[adc] chunk trainer alone: {ms:.3f} ms/step (CUDA events, 2 chunks of 100 "
+        f"steps), {256 / ms * 1e3:.0f} samples/s")
+
+    rows = np.random.default_rng(1).integers(0, 4096, 256)
+    inputs = adc_kernel_inputs(emap, cvs, rows)
+    kern = adc_kernel_check(fs, inputs, "adc", reps=20)
+    b = [torch.tensor(cvs[k][rows], device="cuda") for k in CV_KEYS]
+    ang = b[0].clone().requires_grad_(True)
+    dh = b[1].clone().requires_grad_(True)
+    out = backmap(b[3], ang, dh)
+    g = torch.randn_like(out)
+    ms_bf = time_ms(lambda: backmap(b[3], ang, dh), 20)
+    ms_bb = time_ms(lambda: torch.autograd.grad(out, (ang, dh), g, retain_graph=True), 20)
+    inp_sel = b[2][:, 1::3]
+    out_sel = out.detach()[:, 1::3].clone().requires_grad_(True)
+
+    def dense_cost():
+        cost = L.cartesian_loss_matrix(pairwise_dist(inp_sel), pairwise_dist(out_sel), emap.p)
+        torch.autograd.grad(cost, out_sel)
+
+    ms_dense = time_ms(dense_cost, 20)
+    sig = {D: v["fwd"][1] + v["bwd"][1] for (D, _), v in kern.items()}
+    log(f"[adc] stages at B=256 (CUDA events): backmap fwd {ms_bf:.4f} ms, bwd {ms_bb:.4f} "
+        f"ms; dense Cartesian cost fwd+bwd {ms_dense:.4f} ms; sigmoid kernels fwd+bwd "
+        + ", ".join(f"D={D} {t:.4f} ms" for D, t in sig.items())
+        + f"; step {ms:.3f} ms, device busy {busy:.3f} ms")
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
+
+
+def phase_adc_matrix(em, fs, _build, run_dir: Path) -> dict:
+    """158 residues (lysozyme scale), B=256, 10 steps: 158 CAs take the
+    matrix form, so the kernels get CA distance-matrix rows of width
+    158^2 = 24,964 with the sqrt(2) sigma; held against their plain
+    versions there once."""
+    cvs = adc_cvs(158, 1024, seed=1)
+    emap, _, counts, _ = adc_train(em, _build, cvs, adc_params(em, run_dir, 10, 10),
+                                   "adc 158", 2)
+    inputs = adc_kernel_inputs(emap, cvs, np.arange(256))
+    check((158 ** 2, float("inf")) in inputs, "adc 158: the matrix rows are not 158^2 wide")
+    kern = adc_kernel_check(fs, inputs, "adc 158")
+    return dict(counts=counts, kernels=kern)
+
+
+def phase_adc_analytic(em, fs, _build, run_dir: Path) -> dict:
+    """512 residues, B=256, 5 steps: 512 CAs (>= MIN_ANALYTIC_ATOMS) take
+    the analytic Cartesian costs (the CA sigmoid from one Gram, no kernel),
+    so the kernels run once a step, on the 4,091-wide encoder input. Times
+    the dense and the analytic Cartesian costs there once."""
+    from encodermap_tpu_torch import losses as L
+    from encodermap_tpu_torch.ops.distances import pairwise_dist
+
+    calls = {"analytic": 0}
+    analytic = L.cartesian_losses_analytic
+
+    def counted(*args, **kwargs):
+        calls["analytic"] += 1
+        return analytic(*args, **kwargs)
+
+    cvs = adc_cvs(512, 512, seed=2)
+    L.cartesian_losses_analytic = counted
+    try:
+        emap, _, counts, _ = adc_train(em, _build, cvs, adc_params(em, run_dir, 5, 5),
+                                       "adc 512", 1)
+    finally:
+        L.cartesian_losses_analytic = analytic
+    check(calls["analytic"] == 5, f"adc 512: the analytic route ran {calls} times, not 5")
+    log(f"[adc 512] analytic route taken on each of the 5 steps (512 selected atoms)")
+
+    rows = np.arange(256)
+    inp_sel = torch.tensor(cvs["central_cartesians"][rows, 1::3], device="cuda")
+    out_sel = (inp_sel + 0.05 * torch.randn_like(inp_sel)).requires_grad_(True)
+    lat = torch.randn((256, 2), device="cuda", requires_grad=True)
+
+    def dense():
+        mat = pairwise_dist(inp_sel)
+        cost = (L.cartesian_loss_matrix(mat, pairwise_dist(out_sel), emap.p)
+                + L.cartesian_distance_loss_matrix(mat, lat, emap.p))
+        torch.autograd.grad(cost, (out_sel, lat))
+
+    def analytic_cost():
+        cart, cdist = L.cartesian_losses_analytic(inp_sel, out_sel, lat, emap.p)
+        torch.autograd.grad(cart + cdist, (out_sel, lat))
+
+    ms_d = time_ms(dense, 2)
+    ms_a = time_ms(analytic_cost, 2)
+    log(f"[adc 512] Cartesian costs fwd+bwd at B=256, 512 CAs (CUDA events): dense "
+        f"{ms_d:.3f} ms (its CA sigmoid on the kernels at D=262,144), analytic {ms_a:.3f} ms")
+    kern = adc_kernel_check(fs, {k: v for k, v in adc_kernel_inputs(emap, cvs, rows).items()
+                                 if math.isfinite(k[1])}, "adc 512")
+    return dict(counts=counts, kernels=kern, ms_dense=ms_d, ms_analytic=ms_a)
 
 
 def main() -> int:
@@ -669,6 +923,9 @@ def main() -> int:
         launches += phase_train(em, _build, Path(tmp) / "dihedral", periodic=True)
         general = phase_general(em, _build, Path(tmp) / "general",
                                 router[3, 16384][0])
+        adc_legs = [phase_adc(em, fs, _build, Path(tmp) / "adc"),
+                    phase_adc_matrix(em, fs, _build, Path(tmp) / "adc158"),
+                    phase_adc_analytic(em, fs, _build, Path(tmp) / "adc512")]
 
     main_sig = sig["D=3 euclid"]
     cube = fused["cube d0=3"]
@@ -694,7 +951,8 @@ def main() -> int:
             name=name, route="cuda",
             source="encodermap_tpu_torch/csrc/sigmoid_loss.cu",
             replaces=f"encodermap_tpu/ops/pallas_sigmoid.py:{line}",
-            launches=general[count], max_abs_err=err, ms=ms, plain_ms=ms_p,
+            launches=general[count] + sum(leg["counts"][count] for leg in adc_legs),
+            max_abs_err=err, ms=ms, plain_ms=ms_p,
             bound_ms=b[0], bound_by=b[1], library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,10 +2,13 @@
 """EncoderMap in PyTorch, with its kernels hand-written in CUDA for Hopper.
 
 A port of ``encodermap_tpu`` (JAX on a TPU), which stays in the repository
-as its reference; each module names its counterpart there. This first slice
-is plain EncoderMap training: parameters, the MLP autoencoder, the losses,
+as its reference; each module names its counterpart there. Slice 1 is
+plain EncoderMap training: parameters, the MLP autoencoder, the losses,
 the chunked trainer with its fused train kernel and sigmoid-loss kernels,
-checkpoints that load in both packages, and encode/decode/generate.
+checkpoints that load in both packages, and encode/decode/generate. Slice 2
+is the AngleDihedralCartesianEncoderMap (ADC): internal coordinates,
+backmapping inside the step, the Cartesian costs, on the same sigmoid-loss
+kernels.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed::
 
@@ -15,20 +18,30 @@ Entry points run on the CUDA card unless ``device="cpu"`` is passed::
     emap = em.EncoderMap(p, data)          # device="cpu" without a card
     emap.train()
     latent = emap.encode(data)
+
+    adc = em.AngleDihedralCartesianEncoderMap(cvs, em.ADCParameters())
+    adc.train()                            # cvs: a dict of CV arrays
+    xyz = adc.generate(adc.encode()[:10])
 """
 
 from .losses import (
+    angle_loss,
     auto_loss,
+    cartesian_distance_loss,
+    cartesian_loss,
     center_loss,
+    dihedral_loss,
     distance_loss,
     loss_combinator,
     reconstruction_loss,
     regularization_loss,
+    side_dihedral_loss,
     sigmoid_loss,
 )
 from .misc.misc import create_n_cube
 from .models.sequential import SequentialModel, gen_sequential_model
 from .parameters import ADCParameters, Parameters
+from .train.adc_autoencoder import AngleDihedralCartesianEncoderMap
 from .train.autoencoder import Autoencoder, DihedralEncoderMap, EncoderMap
 from .train.callbacks import (
     Callback,
@@ -47,16 +60,22 @@ __all__ = [
     "Autoencoder",
     "EncoderMap",
     "DihedralEncoderMap",
+    "AngleDihedralCartesianEncoderMap",
     "Callback",
     "CheckpointSaver",
     "EarlyStop",
     "NaNInterrupt",
     "ProgressBar",
+    "angle_loss",
     "auto_loss",
+    "cartesian_distance_loss",
+    "cartesian_loss",
     "center_loss",
+    "dihedral_loss",
     "distance_loss",
     "loss_combinator",
     "reconstruction_loss",
     "regularization_loss",
+    "side_dihedral_loss",
     "sigmoid_loss",
 ]

@@ -3,8 +3,10 @@
 
 The JAX package has no counterpart. Both packages store a model as
 ``{"encoder": [{"kernel": (din, dout), "bias": (dout,)}, ...],
-"decoder": [...]}`` and the Adam state as optax's ``count``/``mu``/``nu``
-in the same layout, so conversion is a copy: no transpose, no reordering.
+"decoder": [...]}`` (an ADC model with sparse inputs adds ``"densifiers":
+{name: {"kernel", "bias"}}``) and the Adam state as optax's
+``count``/``mu``/``nu`` in the same layout, so conversion is a copy of any
+such tree: no transpose, no reordering.
 Pass numpy arrays (``jax.device_get`` of the JAX trees) in, get numpy
 arrays out.
 """

@@ -192,13 +192,14 @@ def gen_sequential_model(input_shape: int, parameters=None,
                          ) -> SequentialModel:
     """Model factory with the reference's signature
     (``models/models.py:256-288``). ``ADCParameters`` belong to the ADC
-    model, which the port has not reached yet."""
+    model (``models/adc.py``, trained by ``AngleDihedralCartesianEncoderMap``)."""
     if parameters is None:
         parameters = Parameters()
     if isinstance(parameters, ADCParameters):
         raise TypeError(
-            "For ADCParameters use the functional ADC model (not yet ported "
-            "to encodermap_tpu_torch)."
+            "For ADCParameters use the functional ADC model: "
+            "encodermap_tpu_torch.AngleDihedralCartesianEncoderMap "
+            "(models/adc.py)."
         )
     if not isinstance(parameters, Parameters):
         raise TypeError(

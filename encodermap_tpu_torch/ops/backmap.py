@@ -1,0 +1,273 @@
+# encodermap_tpu_torch/ops/backmap.py
+"""Backmapping: internal coordinates (bond lengths, angles, dihedrals) -> xyz.
+
+Counterpart of the training and generation part of
+``encodermap_tpu/ops/backmap.py``:
+
+* :func:`chain_in_plane` places a planar zig-zag chain in closed form: the
+  heading recurrence ``a_{i+1} = pi - angle_i - a_i`` is a cumsum with
+  alternating signs, and the positions are cumsums of the rotated bonds.
+* :func:`dihedrals_to_cartesian` curls both halves of the chain out of the
+  plane. A rotation about an axis that earlier rotations moved telescopes
+  into ``C_i = B_0 ∘ B_1 ∘ ... ∘ B_i`` of rotations ``B_i`` about the FIXED
+  planar axes, so each half-chain is one cumulative quaternion product
+  (``_one_way``), the rotated planar bonds and their cumsum. Rotations
+  only are composed: an affine scan cancels badly on long chains.
+* ``_one_way`` is a :class:`torch.autograd.Function` whose backward is the
+  hand-derived adjoint of the JAX package's ``_one_way_bwd``: suffix sums
+  give the bond, torsion and axis pullbacks.
+
+The cumulative product has no ``associative_scan`` in PyTorch; it runs as
+``ceil(log2 n)`` doubling rounds over the whole chain, keeping the JAX
+package's operand order (the earlier product on the left). The JAX
+package's TPU-only layouts (the MXU suffix sums, stacked against
+per-component planes, both halves in one padded call) are not ported: the
+port takes the forms the JAX package takes on the CPU. Quaternions are
+``(4, B, n)`` tensors ``(w, x, y, z)``, vectors ``(3, B, n)``.
+
+``backmap_multimer``, ``guess_*`` and ``merge_cartesians`` wait for the
+sidechain and multimer slice of the port.
+"""
+
+from __future__ import annotations
+
+from math import pi
+
+import torch
+
+__all__ = [
+    "chain_in_plane",
+    "dihedrals_to_cartesian",
+    "dihedral_to_cartesian_one_way",
+    "split_and_reverse_dihedrals",
+    "split_and_reverse_cartesians",
+    "backmap",
+]
+
+
+def _signs(pattern_even: float, start: int, stop: int, like: torch.Tensor
+           ) -> torch.Tensor:
+    """``pattern_even`` at even indices of ``start..stop-1``, its negative
+    at odd ones; made on ``like``'s device (no host-to-device copy)."""
+    idx = torch.arange(start, stop, device=like.device)
+    return (1 - 2 * (idx % 2)).to(like.dtype) * pattern_even
+
+
+def chain_in_plane(lengths: torch.Tensor, angles: torch.Tensor
+                   ) -> torch.Tensor:
+    """Place a zig-zag chain in the xy-plane.
+
+    Args:
+        lengths: ``(batch, n_atoms - 1)`` bond lengths.
+        angles: ``(batch, n_atoms - 2)`` bond angles.
+
+    Returns:
+        ``(batch, n_atoms, 3)`` coordinates with z == 0. With
+        ``s_j = (-1)^(j+1) (pi - angles_j)`` the heading before bond i is
+        ``(-1)^i sum_{j<i} s_j`` and bond i's y-step carries ``(-1)^i``.
+    """
+    n_bonds, n_angles = lengths.shape[-1], angles.shape[-1]
+    if n_bonds != n_angles + 1:
+        raise ValueError(f"{n_bonds} bond lengths need {n_bonds - 1} angles, "
+                         f"got {n_angles}")
+    s = _signs(-1.0, 0, n_angles, angles)[None, :] * (pi - angles)
+    csum = torch.cumsum(s, dim=-1)
+    zeros = torch.zeros((angles.shape[0], 1), dtype=angles.dtype,
+                        device=angles.device)
+    heading = torch.cat([zeros, _signs(1.0, 1, n_bonds, angles)[None, :] * csum],
+                        dim=-1)
+    dx = lengths * torch.cos(heading)
+    dy = lengths * torch.sin(heading) * _signs(1.0, 0, n_bonds, angles)[None, :]
+    xs = torch.cat([zeros, torch.cumsum(dx, dim=-1)], dim=-1)
+    ys = torch.cat([zeros, torch.cumsum(dy, dim=-1)], dim=-1)
+    return torch.stack([xs, ys, torch.zeros_like(xs)], dim=-1)
+
+
+def _quat_compose(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Hamilton product ``f ⊗ g`` of ``(4, ...)`` quaternions:
+    ``R(f ⊗ g) = R(f) R(g)``, so g's rotation applies first."""
+    fw, fv, gw, gv = f[0], f[1:], g[0], g[1:]
+    w = fw * gw - (fv * gv).sum(0)
+    v = fw * gv + gw * fv + torch.linalg.cross(fv, gv, dim=0)
+    return torch.cat([w[None], v], dim=0)
+
+
+def _quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[:1], -q[1:]], dim=0)
+
+
+def _quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate ``(3, ...)`` vectors by ``(4, ...)`` quaternions (broadcast):
+    ``v + 2w (r x v) + 2 r x (r x v)`` with ``q = (w, r)``."""
+    w, r = q[0], q[1:]
+    t = 2.0 * torch.linalg.cross(r, v, dim=0)
+    return v + w * t + torch.linalg.cross(r, t, dim=0)
+
+
+def _cumulative_quats(q: torch.Tensor) -> torch.Tensor:
+    """``C_i = q_0 ⊗ q_1 ⊗ ... ⊗ q_i`` along the last axis, in
+    ``ceil(log2 n)`` doubling rounds: at offset k, element i >= k becomes
+    ``C[i-k] ⊗ C[i]`` (earlier product on the left, as in the JAX scan)."""
+    n, k = q.shape[-1], 1
+    while k < n:
+        q = torch.cat([q[..., :k], _quat_compose(q[..., :-k], q[..., k:])],
+                      dim=-1)
+        k *= 2
+    return q
+
+
+def _suffix_sums(x: torch.Tensor) -> torch.Tensor:
+    """``out[..., i] = sum_{m >= i} x[..., m]`` (flip, cumsum, flip)."""
+    return torch.flip(torch.cumsum(torch.flip(x, (-1,)), dim=-1), (-1,))
+
+
+class _OneWay(torch.autograd.Function):
+    """One half-chain: ``(B, n)`` dihedrals and ``(B, n + 3, 3)`` planar
+    coordinates in, curled ``(B, n + 3, 3)`` coordinates out.
+
+    With ``y_k = q_1 + sum_{m<=k} R_{c(m)} b_m`` (``b_m`` planar bonds, R the
+    cumulative rotations, ``c(m) = min(m-2, n-1)``) the backward is:
+
+    * bond pullback ``b_bar_m = R_{c(m)}^T G_m``, ``G_m = sum_{k>=m} g_k``;
+    * torsion pullback ``d_bar_i = a_i^fin . sum_{m>=i+2} r_m x G_m``
+      (``a^fin = r_{i+2} / |u_i|``, r the rotated bonds);
+    * axis pullback through ``N_i = R_i^T M_i R_{i-1}``,
+      ``M_i = sum_{m>=i+2} r_m G_m^T``:
+      ``a_bar_i = sin(d_i) vee(N_i) + (1 - cos d_i)(N_i + N_i^T) a_i``,
+      then ``u_bar = (I - a a^T) a_bar / |u|``.
+    """
+
+    @staticmethod
+    def forward(ctx, dihedrals, cartesian):
+        c = cartesian.permute(2, 0, 1)                  # (3, B, n + 3)
+        u = c[:, :, 2:-1] - c[:, :, 1:-2]               # axes, (3, B, n)
+        ulen = torch.sqrt((u * u).sum(0))
+        a = u / ulen
+        # the reference's x @ R_rodrigues(axis, -d) is a column rotation by
+        # +d: q = (cos(d/2), sin(d/2) a)
+        half = 0.5 * dihedrals
+        q = torch.cat([torch.cos(half)[None], torch.sin(half)[None] * a], 0)
+        q_scan = _cumulative_quats(q)
+        # the last atom shares C_{n-1} with the one before it
+        q_cum = torch.cat([q_scan, q_scan[..., -1:]], dim=-1)
+        r = _quat_rotate(q_cum, c[:, :, 2:] - c[:, :, 1:-1])  # (3, B, n + 1)
+        moved = c[:, :, 1:2] + torch.cumsum(r, dim=-1)
+        ctx.save_for_backward(dihedrals, q_scan, q_cum, r, a, ulen)
+        return torch.cat([c[:, :, :2], moved], -1).permute(1, 2, 0).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        dihedrals, q_scan, q_cum, r, a, ulen = ctx.saved_tensors
+        B, n = dihedrals.shape
+        g = grad.permute(2, 0, 1)                       # (3, B, n + 3)
+        G = _suffix_sums(g[:, :, 2:])                   # (3, B, n + 1)
+        b_bar = _quat_rotate(_quat_conj(q_cum), G)
+        # torsion and moment sums; bond m sits at index m - 2, so
+        # "m >= i + 2" starts at index i
+        sums = _suffix_sums(torch.cat(
+            [torch.linalg.cross(r, G, dim=0),
+             (r[:, None] * G[None]).reshape(9, B, n + 1)], dim=0))
+        d_bar = (r[..., :n] * sums[:3, :, :n]).sum(0) / ulen
+        M = sums[3:].reshape(3, 3, B, n + 1)[..., :n]
+        ident = torch.zeros_like(q_scan[..., :1])
+        ident[0] = 1.0
+        q_im1 = torch.cat([ident, q_scan[..., :n - 1]], dim=-1)
+        half_n = _quat_rotate(_quat_conj(q_scan)[:, None], M)   # R_i^T M_i
+        N = _quat_rotate(_quat_conj(q_im1)[:, None],
+                         half_n.transpose(0, 1)).transpose(0, 1)
+        vee = torch.stack([N[1, 2] - N[2, 1], N[2, 0] - N[0, 2],
+                           N[0, 1] - N[1, 0]])
+        sym_a = ((N + N.transpose(0, 1)) * a[None]).sum(1)
+        a_bar = torch.sin(dihedrals) * vee + (1.0 - torch.cos(dihedrals)) * sym_a
+        u_bar = (a_bar - a * (a * a_bar).sum(0)) / ulen
+        # planar-coordinate cotangent: bonds b_m = q_m - q_{m-1}
+        # (m = 2..n+2) and axes u_i = q_{i+2} - q_{i+1}
+        v = torch.zeros_like(g)
+        v[:, :, 0] = g[:, :, 0]
+        v[:, :, 1] = g[:, :, 1] + g[:, :, 2:].sum(-1)
+        v[:, :, 2:] += b_bar
+        v[:, :, 1:-1] -= b_bar
+        v[:, :, 2:-1] += u_bar
+        v[:, :, 1:-2] -= u_bar
+        return d_bar, v.permute(1, 2, 0)
+
+
+def dihedral_to_cartesian_one_way(dihedrals: torch.Tensor,
+                                  cartesian: torch.Tensor) -> torch.Tensor:
+    """Curl one half-chain out of the plane, setting its dihedrals in turn
+    (reference ``misc/backmapping.py:1873-1912``), through ``_one_way``.
+
+    Args:
+        dihedrals: ``(batch, n)`` dihedral angles.
+        cartesian: ``(batch, n + 3, 3)`` planar chain coordinates.
+    """
+    if dihedrals.ndim != 2:
+        raise ValueError(f"dihedrals must be (batch, n), got {dihedrals.shape}")
+    n = dihedrals.shape[-1]
+    if n == 0:
+        return cartesian
+    if cartesian.shape[-2] != n + 3:
+        raise ValueError(f"{n} dihedrals need {n + 3} atoms, got "
+                         f"{cartesian.shape[-2]}")
+    return _OneWay.apply(dihedrals, cartesian)
+
+
+def split_and_reverse_dihedrals(x: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Left half (reversed) and right half of the dihedrals (reference
+    ``misc/backmapping.py:179-214``)."""
+    middle = x.shape[1] // 2
+    if x.shape[1] % 2 == 0:
+        return x[:, :middle].flip(1), x[:, middle:]
+    return x[:, :middle + 1].flip(1), x[:, middle + 1:]
+
+
+def split_and_reverse_cartesians(x: torch.Tensor
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Left half (reversed) and right half of the atoms, sharing three
+    atoms (reference ``misc/backmapping.py:217-256``)."""
+    split = x.shape[1] // 2
+    return x[:, :split + 2].flip(1), x[:, split - 1:]
+
+
+def dihedrals_to_cartesian(dihedrals: torch.Tensor, cartesians: torch.Tensor
+                           ) -> torch.Tensor:
+    """Both-ways dihedral application: the chain centre stays planar and
+    both tails curl into 3-D (reference ``misc/backmapping.py:259-307``),
+    one ``_one_way`` call per half."""
+    cart_left, cart_right = split_and_reverse_cartesians(cartesians)
+    dih_left, dih_right = split_and_reverse_dihedrals(dihedrals)
+    new_left = dihedral_to_cartesian_one_way(dih_left, cart_left)
+    new_right = dihedral_to_cartesian_one_way(dih_right, cart_right)
+    return torch.cat([new_left.flip(1), new_right[:, 3:]], dim=1)
+
+
+def backmap(distances: torch.Tensor, angles: torch.Tensor,
+            dihedrals: torch.Tensor) -> torch.Tensor:
+    """The BackMapLayer (reference ``models/layers.py:913-987``): the batch
+    mean of the RAW bond lengths (the reference's negative-distance guard
+    never reaches its mean), ``chain_in_plane``, then ``dihedrals + pi``
+    curled in both ways.
+
+    Args:
+        distances: ``(batch, n_atoms - 1)``.
+        angles: ``(batch, n_atoms - 2)``.
+        dihedrals: ``(batch, n_atoms - 3)``.
+
+    Returns:
+        ``(batch, n_atoms, 3)``.
+
+    Example:
+        >>> import torch
+        >>> from encodermap_tpu_torch.ops.backmap import backmap
+        >>> xyz = backmap(torch.full((2, 4), 0.15), torch.full((2, 3), 2.0),
+        ...               torch.zeros((2, 2)))
+        >>> tuple(xyz.shape)
+        (2, 5, 3)
+        >>> round(float(torch.linalg.norm(xyz[0, 1] - xyz[0, 0])), 5)
+        0.15
+    """
+    mean_lengths = torch.mean(distances, dim=0, keepdim=True).expand(
+        angles.shape[0], -1)
+    chain = chain_in_plane(mean_lengths, angles)
+    return dihedrals_to_cartesian(dihedrals + pi, chain)

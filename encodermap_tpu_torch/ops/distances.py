@@ -33,6 +33,7 @@ __all__ = [
     "pairwise_dist",
     "pairwise_dist_periodic",
     "sqrt_guard",
+    "component_plane_dists",
 ]
 
 #: feature dim at/above which the full-matrix paths switch to the Gram
@@ -45,6 +46,20 @@ def sqrt_guard(d2: torch.Tensor) -> torch.Tensor:
     ``d2 == 0``."""
     mask = (d2 == 0.0).to(d2.dtype)
     return torch.sqrt(d2 + mask * 1e-16) * (1.0 - mask)
+
+
+def component_plane_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Euclidean distances ``(..., R, n)`` between the length-3 rows of
+    ``a`` ``(..., R, 3)`` and ``b`` ``(..., n, 3)``, summed one coordinate
+    at a time, with :func:`sqrt_guard`'s diagonal convention: the dense,
+    analytic and blocked Cartesian losses give equal values only because
+    they all guard the diagonal this one way."""
+    d2 = None
+    for c in range(3):
+        diff = a[..., c][..., :, None] - b[..., c][..., None, :]
+        sq = diff * diff
+        d2 = sq if d2 is None else d2 + sq
+    return sqrt_guard(d2)
 
 
 def sigmoid(sig: float, a: float, b: float

@@ -230,10 +230,18 @@ def sigmoid_loss_general(h, l, params, periodicity) -> torch.Tensor:
                                    - sigmoid(sig_l, a_l, b_l)(dist_l)))
 
 
-def fused_or_reference(h, l, params, periodicity) -> torch.Tensor:
+def fused_or_reference(h, l, params, periodicity,
+                       h_precision: str = "highest") -> torch.Tensor:
     """The kernels for tensors on the card, at every batch size; the general
     path on the CPU and where ``h`` itself needs a gradient (see the module
-    docstring)."""
+    docstring).
+
+    ``h_precision`` is the JAX package's matrix-product precision of the
+    high-D side ("high" lets the TPU take 3-pass bf16 products for wide
+    ``h``). The port computes in full float32 on every route and TF32 stays
+    off, so every value means float32 here."""
+    if h_precision not in ("highest", "high", "default"):
+        raise ValueError(f"unknown h_precision {h_precision!r}")
     if h.device.type == "cuda" and not h.requires_grad:
         return fused_sigmoid_loss(h, l, params, periodicity)
     return sigmoid_loss_general(h, l, params, periodicity)

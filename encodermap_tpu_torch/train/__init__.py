@@ -2,10 +2,12 @@
 """Training of the port: the chunked trainer, callbacks and the autoencoder
 classes (counterpart of ``encodermap_tpu/train``)."""
 
+from .adc_autoencoder import AngleDihedralCartesianEncoderMap
 from .autoencoder import Autoencoder, DihedralEncoderMap, EncoderMap
 from .callbacks import Callback, CheckpointSaver, EarlyStop, NaNInterrupt, ProgressBar
 from .core import TrainState, make_optimizer, make_scan_trainer
 
-__all__ = ["Autoencoder", "EncoderMap", "DihedralEncoderMap", "Callback",
+__all__ = ["Autoencoder", "EncoderMap", "DihedralEncoderMap",
+           "AngleDihedralCartesianEncoderMap", "Callback",
            "CheckpointSaver", "EarlyStop", "NaNInterrupt", "ProgressBar",
            "TrainState", "make_optimizer", "make_scan_trainer"]

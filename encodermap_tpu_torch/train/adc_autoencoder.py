@@ -1,0 +1,433 @@
+# encodermap_tpu_torch/train/adc_autoencoder.py
+"""AngleDihedralCartesianEncoderMap: training on internal coordinates with
+backmapping inside the step.
+
+Counterpart of ``encodermap_tpu/train/adc_autoencoder.py`` (after the
+reference's ``autoencoder/autoencoder.py:1403-2576``): the CVs
+(central_angles, central_dihedrals, central_cartesians, central_distances
+[, side_dihedrals]) from a dict, a ``dataset=`` tuple or any object with a
+``.CVs`` mapping; the loss stack of ``models.py:2260-2459`` with the
+soft-started Cartesian cost; ``train_for_references``; the clash and RMSD
+tracking; ``encode`` / ``decode`` / ``generate(backend="scan")`` / ``save``
+/ ``from_checkpoint``, with checkpoints that load in both packages.
+
+The Cartesian costs take one of three routes by the selected-atom count,
+with the JAX package's TPU-measured thresholds (kept for parity until the
+H100's are measured): dense ``(B, n, n)`` matrices below
+``MIN_ANALYTIC_ATOMS`` (the flat CA pairs feed the sigmoid below 64 atoms,
+the matrix rows from 64), the hand-written backward of
+``ops/cartesian_analytic.py`` up to ``MIN_BLOCKED_ATOMS``, the row blocks of
+``ops/blocked_cartesian.py`` from there. On the card the sketch-map losses
+of the encoder input and of the flat or matrix CA pairs run on the
+sigmoid-loss kernels: twice forward and twice backward per step.
+
+Waiting for later slices (each raises ``NotImplementedError``): sidechain
+reconstruction, multimer training, streaming, and ``generate`` onto a
+topology (``backend="topology"``, ``"mdtraj"``, ``"mdanalysis"``).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from .. import losses as L
+from ..models import adc
+from ..ops.backmap import backmap as backmap_op
+from ..ops.blocked_cartesian import MIN_BLOCKED_ATOMS
+from ..ops.cartesian_analytic import MIN_ANALYTIC_ATOMS
+from ..ops.distances import pairwise_dist
+from ..ops.kabsch import rmsd as rmsd_op
+from ..parameters import ADCParameters
+from .autoencoder import Autoencoder
+from .core import tree_map
+
+__all__ = ["AngleDihedralCartesianEncoderMap"]
+
+CV_ORDER = ("central_angles", "central_dihedrals", "central_cartesians",
+            "central_distances", "side_dihedrals")
+
+#: selected-atom count from which the CA-pair sigmoid takes the matrix
+#: rows instead of the flat pairs (the JAX package's choice)
+MIN_MATRIX_ATOMS = 64
+
+#: rows per call of encode(), as in the JAX package
+ENCODE_CHUNK = 8192
+
+
+def _needed_cv_names(p: ADCParameters) -> list[str]:
+    adc.check_supported(p)
+    return list(CV_ORDER[:4]) + (["side_dihedrals"] if p.use_sidechains else [])
+
+
+def _extract_cvs(trajs: Any, p: ADCParameters) -> tuple[np.ndarray, ...]:
+    """The CV arrays, in model input order, of a mapping or of any object
+    with a ``.CVs`` mapping."""
+    if isinstance(trajs, Mapping):
+        cvs = trajs
+    elif hasattr(trajs, "CVs"):
+        cvs = trajs.CVs
+    else:
+        raise TypeError(f"Expected a dict of CV arrays or an object with .CVs, "
+                        f"got {type(trajs)}")
+    needed = _needed_cv_names(p)
+    missing = [k for k in needed if k not in cvs]
+    if missing:
+        raise ValueError(f"CVs {missing} not found; provide them in the dict")
+    out = []
+    for k in needed:
+        arr = np.asarray(cvs[k], np.float32)
+        if k == "central_cartesians" and arr.ndim == 2:
+            arr = arr.reshape(len(arr), -1, 3)
+        out.append(arr)
+    return tuple(out)
+
+
+class AngleDihedralCartesianEncoderMap(Autoencoder):
+    """Train on backbone internal coordinates; generate conformations by
+    decoding and backmapping.
+
+    Args:
+        trajs: a dict of CV arrays or an object with ``.CVs``.
+        parameters: :class:`ADCParameters` (defaults if None).
+        model_params: initial parameters (numpy arrays or tensors), e.g. a
+            JAX model's, carried over with ``convert.params_from_numpy``.
+        read_only: write nothing to ``main_path``.
+        dataset: the CV tuple itself, in place of ``trajs``.
+        learning_rate_schedule: callable ``step -> lr``.
+        device: where to train; None means ``"cuda"`` and raises without a
+            card (pass ``device="cpu"`` to train on the CPU).
+    """
+
+    _metrics_only = ("cartesian_cost_scale",)
+
+    def __init__(self, trajs: Any = None,
+                 parameters: Optional[ADCParameters] = None,
+                 model_params: Optional[dict] = None, read_only: bool = False,
+                 dataset: Optional[tuple] = None,
+                 learning_rate_schedule=None, device: Any = None) -> None:
+        p = parameters if parameters is not None else ADCParameters()
+        adc.check_supported(p)
+        self._init_run(p, "functional", read_only, learning_rate_schedule, device)
+        self.trajs = trajs
+        if dataset is not None:
+            self.train_data = tuple(np.asarray(d, np.float32) for d in dataset)
+        else:
+            self.train_data = _extract_cvs(trajs, self.p)
+        side = self.train_data[4] if len(self.train_data) == 5 else None
+        self.shapes = adc.ADCShapes.from_data(*self.train_data[:4], side)
+        # NaNs mark values missing after a mixed-topology alignment: the
+        # masked-dense "sparse" mode with per-input densifiers
+        # (reference autoencoder.py:796-800)
+        self.sparse = any(np.isnan(a).any() for a in self.train_data)
+        self._init_state(model_params, lambda gen: adc.init_params(
+            gen, self.p, self.shapes, sparse=self.sparse))
+
+    @classmethod
+    def _parameters_class(cls):
+        return ADCParameters
+
+    # ---------------------------------------------------------------- losses
+    def _loss_terms(self, params: dict, batch: tuple, step: int = 0) -> dict:
+        """The reference's loss assembly (``models.py:2260-2459``)."""
+        return self._loss_and_aux(params, batch, step)[0]
+
+    def _loss_and_aux(self, params: dict, batch: tuple, step: int
+                      ) -> tuple[dict, tuple]:
+        """Loss terms, and ``(back_cartesians, input_cartesians)`` for the
+        clash and RMSD tracking."""
+        p = self.p
+        if self.sparse:
+            dens_params = params
+            if not p.trainable_dense_to_sparse:
+                dens_params = dict(params, densifiers=tree_map(
+                    torch.Tensor.detach, params["densifiers"]))
+            batch = adc.densify_inputs(dens_params, batch)
+        inp_angles, inp_dihedrals, inp_cartesians = batch[:3]
+        inp_side = batch[4] if len(batch) == 5 else None
+        out_angles, out_dihedrals, out_side, back, _, _, latent = adc.forward(
+            params, p, batch, self.shapes, with_pairs=False)
+
+        # the distance and center costs see the raw trained groups
+        # (loss_functions.py:279-281)
+        groups = [inp_angles, inp_dihedrals] if p.use_backbone_angles \
+            else [inp_dihedrals]
+        if p.use_sidechains:
+            groups.append(inp_side)
+        enc_inp = torch.cat(groups, dim=1) if len(groups) > 1 else groups[0]
+
+        scale = L.soft_start_scale(p, step, device=latent.device)
+        inp_sel = adc._ca_slice(p, inp_cartesians)
+        out_sel = adc._ca_slice(p, back)
+        n_sel = inp_sel.shape[1]
+        if n_sel >= MIN_BLOCKED_ATOMS:
+            cart_loss, cdist_loss = L.cartesian_losses_blocked(
+                inp_sel, out_sel, latent, p, scale=scale)
+        elif n_sel >= MIN_ANALYTIC_ATOMS:
+            cart_loss, cdist_loss = L.cartesian_losses_analytic(
+                inp_sel, out_sel, latent, p, scale=scale)
+        else:
+            inp_mat = pairwise_dist(inp_sel)
+            cart_loss = L.cartesian_loss_matrix(inp_mat, pairwise_dist(out_sel),
+                                                p, scale=scale)
+            cdist_loss = (
+                L.cartesian_distance_loss_matrix(inp_mat, latent, p)
+                if n_sel >= MIN_MATRIX_ATOMS else
+                L.cartesian_distance_loss(pairwise_dist(inp_sel, flat=True),
+                                          latent, p))
+        terms = {
+            "dihedral_loss": L.dihedral_loss(inp_dihedrals, out_dihedrals, p),
+            "angle_loss": L.angle_loss(inp_angles, out_angles, p),
+            "cartesian_loss": cart_loss,
+            "distance_loss": L.distance_loss(enc_inp, latent, p),
+            "cartesian_distance_loss": cdist_loss,
+            "center_loss": L.center_loss(latent, p),
+            "regularization_loss": L.regularization_loss(
+                adc.regularization_sum(params), p),
+        }
+        if p.use_sidechains:
+            terms["side_dihedral_loss"] = L.side_dihedral_loss(inp_side,
+                                                               out_side, p)
+        terms["cartesian_cost_scale"] = scale
+        return terms, (back, inp_cartesians)
+
+    def _metric_io(self, params: dict, batch: tuple) -> tuple:
+        """``(y_true, y_pred)`` for metric objects: the (densified) input
+        tuple and ``(out_angles, out_dihedrals, back_cartesians, inp_pair,
+        out_pair[, out_side])``, the coordinates at index 2."""
+        if self.sparse:
+            batch = adc.densify_inputs(params, batch)
+        out_angles, out_dihedrals, out_side, back, inp_pair, out_pair, _ = \
+            adc.forward(params, self.p, batch, self.shapes)
+        y_pred = (out_angles, out_dihedrals, back, inp_pair, out_pair)
+        return batch, y_pred if out_side is None else y_pred + (out_side,)
+
+    def _aux_metric_terms(self, aux: tuple, batch: tuple) -> dict:
+        """Clash count and RMSD (``callbacks/metrics.py:470-581``) from the
+        loss forward's backmapped coordinates, when tracked."""
+        out = {}
+        back, target = aux
+        if self.p.track_clashes:
+            # nm coordinates: a clash is a pair closer than 0.1 nm
+            d = pairwise_dist(back, flat=True)
+            out["clashes"] = torch.mean(torch.sum(d < 0.1, dim=-1).to(torch.float32))
+        if self.p.track_RMSD:
+            out["rmsd"] = torch.mean(rmsd_op(back, target))
+        return out
+
+    # -------------------------------------------------------------- training
+    def _device_data(self) -> tuple:
+        # NaNs stay: the densifiers zero-fill them inside the step
+        return tuple(torch.as_tensor(d, dtype=torch.float32, device=self.device)
+                     for d in self.train_data)
+
+    def set_train_data(self, trajs: Any) -> None:
+        """Replace the training data by a CV dict, tuple or ``.CVs`` object
+        of the same widths (reference ``autoencoder.py:1973``)."""
+        if isinstance(trajs, (tuple, list)):
+            new = tuple(np.asarray(d, np.float32) for d in trajs)
+        else:
+            new = _extract_cvs(trajs, self.p)
+        if len(new) != len(self.train_data):
+            raise ValueError(f"new data has {len(new)} CV arrays, the model "
+                             f"trains on {len(self.train_data)}")
+        for name, old, arr in zip(_needed_cv_names(self.p), self.train_data, new):
+            if old.shape[1:] != arr.shape[1:]:
+                raise ValueError(f"new {name} shape {arr.shape[1:]} does not "
+                                 f"match the model's {old.shape[1:]}")
+        new_sparse = any(np.isnan(a).any() for a in new)
+        if new_sparse and "densifiers" not in self.state.params:
+            raise ValueError("the new data holds NaNs (sparse mode) but this "
+                             "model was built dense (no densifiers); rebuild "
+                             "it on the NaN-padded data")
+        self.sparse = new_sparse
+        if not isinstance(trajs, (tuple, list)):
+            self.trajs = trajs
+        self.train_data = new
+
+    def train_for_references(self, subsample: int = 100, maxiter: int = 500
+                             ) -> dict[str, float]:
+        """Set the angle, dihedral and Cartesian cost references to the
+        costs of a model that always predicts the dataset mean (reference
+        ``autoencoder.py:1816-1938``); batches drawn by numpy from the seed,
+        as in the JAX package."""
+        p_ref = ADCParameters(cartesian_cost_scale=1, angle_cost_scale=1,
+                              dihedral_cost_scale=1)
+        angles, dihedrals, cartesians, distances = self.train_data[:4]
+        n = len(angles)
+        nsteps = min(maxiter, max(1, n // self.p.batch_size))
+
+        def dev(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+        # nanmean: sparse ensembles NaN-pad missing columns
+        mean_angles = dev(np.nanmean(angles, 0, keepdims=True))
+        mean_dihedrals = dev(np.nanmean(dihedrals, 0, keepdims=True))
+        mean_lengths = dev(np.nanmean(distances, 0, keepdims=True))
+        with torch.no_grad():
+            gen_pd = adc.cartesian_pwd_slice(
+                self.p, backmap_op(mean_lengths, mean_angles, mean_dihedrals))
+        rng = np.random.default_rng(self.p.seed if self.p.seed is not None else 0)
+        acc = {"angle_cost": [], "dihedral_cost": [], "cartesian_cost": []}
+        if self.sparse:
+            # missing entries take the dataset mean, so they add zero cost
+            stride = max(1, int(subsample))
+            fills = [np.nanmean(x[::stride], 0)
+                     for x in (angles, dihedrals, cartesians)]
+        for _ in range(nsteps):
+            idx = rng.integers(0, n, self.p.batch_size)
+            batch = (angles[idx], dihedrals[idx], cartesians[idx])
+            if self.sparse:
+                batch = tuple(np.where(np.isnan(b), f, b)
+                              for b, f in zip(batch, fills))
+            b_ang, b_dih, b_cart = (dev(b) for b in batch)
+            B = b_ang.shape[0]
+            with torch.no_grad():
+                acc["angle_cost"].append(float(L.angle_loss(
+                    b_ang, mean_angles.expand(B, -1), p_ref)))
+                acc["dihedral_cost"].append(float(L.dihedral_loss(
+                    b_dih, mean_dihedrals.expand(B, -1), p_ref)))
+                acc["cartesian_cost"].append(float(L.cartesian_loss(
+                    adc.cartesian_pwd_slice(self.p, b_cart),
+                    gen_pd.expand(B, -1), p_ref, scale=1.0)))
+        means = {k: float(np.mean(v)) for k, v in acc.items()}
+        print(f"After {nsteps} steps setting cost references: {means}.")
+        self.p.angle_cost_reference = means["angle_cost"]
+        self.p.dihedral_cost_reference = means["dihedral_cost"]
+        self.p.cartesian_cost_reference = means["cartesian_cost"]
+        if not self.read_only:
+            self.p.save(Path(self.p.main_path) / "parameters.json")
+        return means
+
+    # ------------------------------------------------------------- inference
+    def encode(self, data: Optional[Any] = None) -> np.ndarray:
+        """Latent projection of ``(angles, dihedrals[, side_dihedrals])``,
+        the full CV tuple, a CV dict, a stacked (angles | dihedrals | side)
+        matrix, or the training CVs; ``ENCODE_CHUNK`` rows per call."""
+        if data is None:
+            data = self.train_data
+        if isinstance(data, Mapping):
+            data = _extract_cvs(data, self.p)
+        if isinstance(data, np.ndarray):
+            data = self._split_stacked(data)
+        arrs = self._as_model_inputs(tuple(np.asarray(d, np.float32)
+                                           for d in data))
+        params = self.state.params
+        outs = []
+        with torch.no_grad():
+            for i in range(0, max(len(arrs[0]), 1), ENCODE_CHUNK):
+                chunk = tuple(torch.tensor(a[i:i + ENCODE_CHUNK], device=self.device)
+                              for a in arrs)
+                if self.sparse:
+                    chunk = adc.densify_inputs(params, chunk)
+                outs.append(adc.encode(params, self.p, chunk).cpu().numpy())
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
+
+    def _as_model_inputs(self, arrs: tuple) -> tuple:
+        """Place a user tuple in the model's five input slots: the side
+        dihedrals sit in slot 4, after cartesians and distances."""
+        if len(arrs) == 5:
+            return arrs
+        z = np.zeros((len(arrs[0]), 0), np.float32)
+        if len(arrs) == 4:
+            if self.p.use_sidechains:
+                raise ValueError(
+                    "this model trains on side_dihedrals: pass the 5-CV tuple "
+                    "(angles, dihedrals, cartesians, distances, "
+                    "side_dihedrals) or (angles, dihedrals, side_dihedrals)")
+            return arrs + (z,)
+        if len(arrs) == 3:
+            return arrs[0], arrs[1], z, z, arrs[2]
+        if len(arrs) == 2:
+            if self.p.use_sidechains:
+                raise ValueError("this model trains on side_dihedrals: pass "
+                                 "(angles, dihedrals, side_dihedrals)")
+            return arrs[0], arrs[1], z, z, z
+        raise ValueError(f"encode() takes (angles, dihedrals[, "
+                         f"side_dihedrals]) or the 5-CV tuple; got "
+                         f"{len(arrs)} arrays")
+
+    def _split_stacked(self, data: np.ndarray) -> tuple:
+        """Split a stacked (angles | dihedrals | side) matrix by the model's
+        widths; untrained angles get a zero placeholder."""
+        s = self.shapes
+        cols = [s.n_angles] if self.p.use_backbone_angles else []
+        cols.append(s.n_dihedrals)
+        if self.p.use_sidechains:
+            cols.append(s.n_side_dihedrals)
+        if data.shape[1] != sum(cols):
+            raise ValueError(f"stacked input has {data.shape[1]} columns, the "
+                             f"model takes {sum(cols)} ({cols})")
+        parts = list(np.split(data, np.cumsum(cols)[:-1], axis=1))
+        if not self.p.use_backbone_angles:
+            parts.insert(0, np.zeros((len(data), s.n_angles), np.float32))
+        if self.p.use_sidechains:
+            return parts[0], parts[1], parts[2]
+        return parts[0], parts[1]
+
+    def _mean_cv(self, i: int) -> torch.Tensor:
+        # nanmean: sparse ensembles NaN-pad missing columns, and one NaN
+        # bond length would reach every backmapped atom
+        return torch.as_tensor(np.nanmean(self.train_data[i], 0, keepdims=True),
+                               dtype=torch.float32, device=self.device)
+
+    def decode(self, latent: np.ndarray) -> tuple:
+        """Latent points to ``(angles, dihedrals[, side_dihedrals])``; the
+        training set's mean angles stand in when angles are not trained
+        (``autoencoder.py:2502``)."""
+        with torch.no_grad():
+            z = torch.tensor(np.asarray(latent, np.float32), device=self.device)
+            out_angles, out_dihedrals, out_side = adc.decode(
+                self.state.params, self.p, z, self.shapes)
+            if out_angles is None:
+                out_angles = self._mean_cv(0).expand(len(z), -1)
+        outs = (out_angles.cpu().numpy(), out_dihedrals.cpu().numpy())
+        return outs if out_side is None else outs + (out_side.cpu().numpy(),)
+
+    def generate(self, points: np.ndarray, backend: str = "scan",
+                 top: Any = None, progbar: Any = None) -> np.ndarray:
+        """Decode latent points and backmap them to ``(n_points, n_atoms,
+        3)`` coordinates with the training set's mean bond lengths (and
+        mean angles when angles are not trained).
+
+        ``backend="scan"`` is the in-graph backmapping. The topology
+        backends (``"topology"``, ``"mdtraj"``, ``"mdanalysis"``) rebuild a
+        real topology, which needs the data layer of slice 3 of the port,
+        and raise ``NotImplementedError``."""
+        del progbar  # the reference's signature
+        if backend not in ("scan", "topology", "mdtraj", "mdanalysis"):
+            raise TypeError(f"backend must be 'scan', 'topology', 'mdtraj' or "
+                            f"'mdanalysis', but you provided {backend!r}")
+        if backend != "scan":
+            raise NotImplementedError(
+                f"generate(backend={backend!r}) rebuilds a topology, which "
+                f"needs the data layer (slice 3 of the port); use "
+                f"backend='scan'")
+        with torch.no_grad():
+            z = torch.tensor(np.asarray(points, np.float32), device=self.device)
+            out_angles, out_dihedrals, _ = adc.decode(self.state.params, self.p,
+                                                      z, self.shapes)
+            if out_angles is None:
+                out_angles = self._mean_cv(0).expand(len(z), -1)
+            lengths = self._mean_cv(3).expand(len(z), -1)
+            return backmap_op(lengths, out_angles, out_dihedrals).cpu().numpy()
+
+    # ----------------------------------------------------------- persistence
+    @classmethod
+    def from_checkpoint(cls, trajs: Any, checkpoint_path: Union[str, Path],
+                        use_previous_model: bool = False,
+                        dataset: Optional[tuple] = None,
+                        **kwargs: Any) -> "AngleDihedralCartesianEncoderMap":
+        """Rebuild from a checkpoint directory or file written by either
+        package; ``trajs`` or ``dataset`` give the CVs, ``kwargs`` go to the
+        constructor (e.g. ``device``)."""
+        ckpt_path = Path(checkpoint_path)
+        p, model_params, opt_npz, step, _ = cls._load_checkpoint_checked(
+            ckpt_path, use_previous_model)
+        out = cls(trajs, parameters=p, model_params=model_params,
+                  dataset=dataset, **kwargs)
+        out._restore_checkpoint_state(step, opt_npz, ckpt_path)
+        return out

@@ -11,8 +11,14 @@ The dataset lives on the device. A chunk of ``steps_per_scan`` steps runs
 either through the fused train kernel (``ops/fused_train.py``, one launch
 per chunk) where :meth:`EncoderMap._maybe_fused_trainer` allows it, or
 through the general route: one autograd step per batch, the sketch-map loss
-through the sigmoid-loss kernels at large batch. Entry points run on the
-card (``device=None`` means ``"cuda"``) unless the caller asks for the CPU.
+through the sigmoid-loss kernels. Entry points run on the card
+(``device=None`` means ``"cuda"``) unless the caller asks for the CPU.
+
+The general route's step is shared with the ADC trainer
+(``train/adc_autoencoder.py``), which plugs in through the JAX package's
+hooks: ``_loss_and_aux`` (the terms at a global step, plus forward
+intermediates), ``_aux_metric_terms`` (metrics from those intermediates)
+and ``_metrics_only`` (terms logged but not summed into the loss).
 
 Not ported yet: multi-GPU meshes (``mesh_shape``), streaming training,
 TensorBoard output, images, and ``DihedralEncoderMap.generate`` onto a
@@ -86,18 +92,9 @@ class Autoencoder:
                  model_params: Optional[dict] = None, read_only: bool = False,
                  sparse: bool = False, learning_rate_schedule=None,
                  device: Any = None) -> None:
-        self.device = resolve_device(device)
-        self.p = parameters if parameters is not None else Parameters()
-        if self.p.mesh_shape:
-            raise NotImplementedError(
-                "mesh_shape (multi-device training) is not ported to "
-                "encodermap_tpu_torch yet; leave it None")
-        self._validate_model_api("sequential")
-        self._lr_schedule = learning_rate_schedule
-        self.read_only = read_only
+        self._init_run(parameters if parameters is not None else Parameters(),
+                       "sequential", read_only, learning_rate_schedule, device)
         self.sparse = sparse
-        self._metrics_writer: Optional[MetricsWriter] = None
-        self.history: dict = {}
 
         if train_data is None:
             train_data, _ = create_n_cube(seed=self.p.seed)
@@ -108,16 +105,34 @@ class Autoencoder:
             self.sparse = True
         self.train_data = train_data
         self.input_dim = train_data.shape[1]
+        self._init_state(model_params, lambda gen: seq.init_params(
+            gen, self.p, self.input_dim, sparse=self.sparse))
 
-        if not read_only:
+    def _init_run(self, p, model_api: str, read_only: bool,
+                  learning_rate_schedule, device: Any) -> None:
+        """What every trainer sets first: device, parameters, options."""
+        self.device = resolve_device(device)
+        self.p = p
+        if self.p.mesh_shape:
+            raise NotImplementedError(
+                "mesh_shape (multi-device training) is not ported to "
+                "encodermap_tpu_torch yet; leave it None")
+        self._validate_model_api(model_api)
+        self._lr_schedule = learning_rate_schedule
+        self.read_only = read_only
+        self._metrics_writer: Optional[MetricsWriter] = None
+        self.history: dict = {}
+
+    def _init_state(self, model_params: Optional[dict], init_fn) -> None:
+        """Write parameters.json, take ``model_params`` (or
+        ``init_fn(generator)`` seeded from ``p.seed``) to the device, and
+        build the optimizer and the train state."""
+        if not self.read_only:
             Path(self.p.main_path).mkdir(parents=True, exist_ok=True)
             self.p.save(Path(self.p.main_path) / "parameters.json")
-
         seed = self.p.seed if self.p.seed is not None else 0
         if model_params is None:
-            gen = torch.Generator().manual_seed(int(seed))
-            model_params = seq.init_params(gen, self.p, self.input_dim,
-                                           sparse=self.sparse)
+            model_params = init_fn(torch.Generator().manual_seed(int(seed)))
         model_params = _tree_to_device(model_params, self.device)
         self.optimizer = make_optimizer(
             self._lr_schedule if self._lr_schedule is not None
@@ -143,8 +158,23 @@ class Autoencoder:
         self._trainer = {}
 
     def add_metric(self, metric_fn, name: Optional[str] = None) -> None:
-        """Log ``fn(params, batch) -> 0-d tensor`` every step, without a
-        gradient (general route only)."""
+        """Log a metric every step, without a gradient (general route
+        only): a plain ``fn(params, batch) -> 0-d tensor``, or a metric
+        class or instance of :mod:`encodermap_tpu_torch.train.metrics`,
+        whose ``update(y_true, y_pred)`` gets :meth:`_metric_io`'s pair
+        (reference ``autoencoder.py:1045``)."""
+        from .metrics import EncoderMapBaseMetric
+
+        if isinstance(metric_fn, type) and issubclass(metric_fn,
+                                                      EncoderMapBaseMetric):
+            metric_fn = metric_fn(parameters=self.p)
+        if isinstance(metric_fn, EncoderMapBaseMetric):
+            metric = metric_fn
+            name = name or metric.name
+
+            def metric_fn(params, batch):
+                return metric.update(*self._metric_io(params, batch))
+
         self.custom_metrics.append(
             (name or getattr(metric_fn, "__name__", "custom_metric"),
              metric_fn))
@@ -165,6 +195,10 @@ class Autoencoder:
                          f"'custom', got {api!r}")
 
     # ----------------------------------------------------------- persistence
+    @classmethod
+    def _parameters_class(cls):
+        return Parameters
+
     def save(self, step: Optional[int] = None) -> Optional[str]:
         """Checkpoint parameters, Adam state, RNG and step
         (``autoencoder.py:1197``); nothing when read-only."""
@@ -181,7 +215,7 @@ class Autoencoder:
         """``(p, model_params, opt_npz, step, directory)`` of a checkpoint,
         checking its step against parameters.json."""
         directory = ckpt_path if ckpt_path.is_dir() else ckpt_path.parent
-        p = Parameters.from_file(directory / "parameters.json")
+        p = cls._parameters_class().from_file(directory / "parameters.json")
         model_params, opt_npz, step = load_checkpoint(
             ckpt_path, n_encoder=len(p.n_neurons))
         if step != p.current_training_step and not use_previous_model:
@@ -233,6 +267,25 @@ class Autoencoder:
         return self.state.params
 
     # ---------------------------------------------------------------- losses
+    #: terms logged every step but not summed into the loss
+    _metrics_only: tuple = ()
+
+    def _loss_and_aux(self, params: dict, batch: Any, step: int
+                      ) -> tuple[dict, tuple]:
+        """``(terms, aux)`` for one batch at global ``step``; ``aux`` carries
+        forward intermediates for :meth:`_aux_metric_terms` (none here)."""
+        return self._loss_terms(params, batch), ()
+
+    def _aux_metric_terms(self, aux: tuple, batch: Any) -> dict:
+        """Metrics computed from the loss forward's ``aux``."""
+        return {}
+
+    def _metric_io(self, params: dict, batch: torch.Tensor) -> tuple:
+        """``(y_true, y_pred)`` for metric objects: the densified batch and
+        its reconstruction."""
+        batch = seq.densify(params, batch)
+        return batch, seq.decode(params, self.p, seq.encode(params, self.p, batch))
+
     def _loss_terms(self, params: dict, batch: torch.Tensor) -> dict:
         """All loss contributions for one batch; subclasses extend."""
         p = self.p
@@ -250,27 +303,33 @@ class Autoencoder:
         """One optimizer step ``(state, batch) -> (state, metrics)`` by
         autograd: the general route."""
 
-        def train_step(state: TrainState, batch: torch.Tensor):
+        def train_step(state: TrainState, batch: Any):
             leaves = [t.detach().requires_grad_(True)
                       for t in tree_leaves(state.params)]
             params = tree_unflatten(state.params, leaves)
-            terms = self._loss_terms(params, batch)
+            terms, aux = self._loss_and_aux(params, batch, state.step)
             terms.update({name: fn(params, batch)
                           for name, fn in self.custom_losses})
-            loss = torch.zeros((), dtype=torch.float32, device=batch.device)
-            for v in terms.values():
-                loss = loss + v
-            grads = torch.autograd.grad(loss, leaves)
+            loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            for k, v in terms.items():
+                if k not in self._metrics_only:
+                    loss = loss + v
+            # a leaf outside the graph (a frozen densifier) gets a zero
+            # gradient, as JAX gives it
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, torch.autograd.grad(
+                         loss, leaves, allow_unused=True))]
             metrics = {k: v.detach() for k, v in terms.items()}
             metrics["loss"] = loss.detach()
             if self._lr_schedule is not None:
                 metrics["learning_rate"] = torch.tensor(
                     self.optimizer.lr_at(state.opt_state["count"]),
-                    dtype=torch.float32, device=batch.device)
+                    dtype=torch.float32, device=self.device)
             with torch.no_grad():
                 new_params, opt_state = self.optimizer.update(
-                    tree_unflatten(state.params, list(grads)),
+                    tree_unflatten(state.params, grads),
                     state.opt_state, state.params)
+                metrics.update(self._aux_metric_terms(aux, batch))
                 metrics.update({name: fn(new_params, batch).detach()
                                 for name, fn in self.custom_metrics})
             return (state.replace(params=new_params, opt_state=opt_state,
@@ -335,6 +394,7 @@ class Autoencoder:
 
         sps = max(1, min(self.p.steps_per_scan, self.p.n_steps))
         data = self._device_data()
+        n_rows = (data[0] if isinstance(data, tuple) else data).shape[0]
         cbs = self._setup_callbacks()
         if not self.read_only:
             self.close()
@@ -354,11 +414,11 @@ class Autoencoder:
             if index_stream is not None:
                 idx = np.asarray(next(index_stream), np.int64)
                 if (idx.shape[0] != chunk or idx.min() < 0
-                        or idx.max() >= len(data)):
+                        or idx.max() >= n_rows):
                     raise ValueError(
                         f"index_stream gave {idx.shape} indices in "
                         f"[{idx.min()}, {idx.max()}]; this chunk needs "
-                        f"{chunk} rows in [0, {len(data)})")
+                        f"{chunk} rows in [0, {n_rows})")
                 idx = torch.from_numpy(idx).to(self.device)
             self.state, metrics = self._get_trainer(chunk)(self.state, data,
                                                            idx)

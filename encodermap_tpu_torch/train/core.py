@@ -188,10 +188,12 @@ def make_scan_trainer(
     Returns:
         ``(state, data, idx=None) -> (state, metrics)`` where each metrics
         entry is a ``(steps,)`` tensor; ``idx`` injects the ``(steps, B)``
-        batch indices.
+        batch indices. ``data`` is one tensor or a tuple of tensors (the ADC
+        trainer's CVs): the indices are drawn from the first one's rows
+        and every tensor is gathered with them.
     """
 
-    def chunk(state: TrainState, data: torch.Tensor,
+    def chunk(state: TrainState, data: Union[torch.Tensor, tuple],
               idx: Optional[torch.Tensor] = None):
         rows = []
         if full_batch:
@@ -199,14 +201,17 @@ def make_scan_trainer(
                 state, metrics = train_step(state, data)
                 rows.append(metrics)
         else:
+            first = data[0] if isinstance(data, tuple) else data
             if idx is None:
-                idx, rng = draw_indices(state.rng, data.shape[0],
+                idx, rng = draw_indices(state.rng, first.shape[0],
                                         (steps_per_scan, batch_size),
-                                        data.device)
+                                        first.device)
                 state = state.replace(rng=rng)
-            idx = idx.to(data.device)
+            idx = idx.to(first.device)
             for s in range(idx.shape[0]):
-                state, metrics = train_step(state, data[idx[s]])
+                batch = (tuple(d[idx[s]] for d in data)
+                         if isinstance(data, tuple) else data[idx[s]])
+                state, metrics = train_step(state, batch)
                 rows.append(metrics)
         return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 

@@ -14,7 +14,15 @@ agree to a tenth of one Adam step (1e-4) in the parameters, since Adam
 divides each gradient by its magnitude, and to 1e-3 of each moment tensor's
 largest entry in the Adam moments, whose later gradients are taken at
 parameters that already differ by that much. Both fused train kernels, the
-cluster kernel and the grid kernel, are held to the same bounds."""
+cluster kernel and the grid kernel, are held to the same bounds.
+
+The ADC cases hold the sigmoid-loss kernels at the widths an ADC step
+gives them, the backmapping's ``_one_way`` on the card against the CPU
+(1e-5 of the largest entry), and two ADC steps on the card against the
+CPU's general path (losses 1e-5 relative and gradients 1e-3 in relative
+norm at the same weights; after Adam's first step, which turns a
+gradient of rounding noise into a full step of either sign, losses 1e-4
+and all but 1 % of the weights 1e-4)."""
 
 import math
 
@@ -243,3 +251,143 @@ def test_encodermap_trains_through_fused_kernel(cuda, tmp_path):
     assert hist["loss"][-50:].mean() < hist["loss"][:50].mean()
     again = em.EncoderMap.from_checkpoint(tmp_path, train_data=data)
     assert np.array_equal(again.encode(data), emap.encode(data))
+
+
+def _adc_cvs(n_res, n_frames, seed=0):
+    """Synthetic ADC CVs: random internals, backmapped (float64, CPU)."""
+    from encodermap_tpu_torch.ops.backmap import backmap
+
+    rng = np.random.default_rng(seed)
+    n_atoms = 3 * n_res
+    ang = rng.uniform(1.6, 2.4, (n_frames, n_atoms - 2))
+    dih = rng.uniform(-np.pi, np.pi, (n_frames, n_atoms - 3))
+    dist = rng.uniform(0.13, 0.155, (n_frames, n_atoms - 1))
+    cart = backmap(*(torch.tensor(x) for x in (dist, ang, dih))).numpy()
+    side = rng.uniform(-np.pi, np.pi, (n_frames, 2 * n_res))
+    return {k: v.astype(np.float32) for k, v in (
+        ("central_angles", ang), ("central_dihedrals", dih), ("central_cartesians", cart),
+        ("central_distances", dist), ("side_dihedrals", side))}
+
+
+@pytest.mark.parametrize("D,kind", [(155, "periodic"), (190, "flat CA pairs"),
+                                    (24964, "CA matrix rows")])
+def test_sigmoid_kernels_match_plain_at_adc_shapes(cuda, D, kind):
+    """B=256 at the widths one ADC step gives the kernels: the trp-cage
+    encoder input (155 periodic columns), its 20 CAs' flat pair distances
+    (190), and the 158-residue CA distance-matrix rows (158^2) with the
+    sqrt(2)-scaled sigma of ``losses._matrix_sig_params``."""
+    from encodermap_tpu_torch.ops import fused_sigmoid as fs
+    from encodermap_tpu_torch.ops.distances import pairwise_dist
+
+    B = 256
+    g = torch.Generator().manual_seed(D)
+    l = torch.randn((B, 2), generator=g).to(cuda)
+    params = SIG[0]
+    if kind == "periodic":
+        h, periodicity = ((torch.rand((B, D), generator=g) * 2 - 1) * math.pi).to(cuda), 2 * math.pi
+    else:
+        n_res = 20 if D == 190 else 158
+        ca = torch.tensor(_adc_cvs(n_res, B)["central_cartesians"][:, 1::3], device=cuda)
+        h = pairwise_dist(ca, flat=True) if D == 190 else pairwise_dist(ca).reshape(B, -1)
+        periodicity = float("inf")
+        if D != 190:
+            params = (params[0] * math.sqrt(2.0),) + params[1:]
+    assert h.shape == (B, D)
+    _check_sigmoid(fs, h.contiguous(), l, params, periodicity)
+
+
+def test_one_way_on_card_matches_cpu(cuda):
+    """``_one_way`` forward and backward at a 158-residue half-chain (236
+    dihedrals), B=256: the card against the CPU, float32, to 1e-5 of the
+    largest entry."""
+    from encodermap_tpu_torch.ops.backmap import _OneWay, chain_in_plane
+
+    rng = np.random.default_rng(0)
+    B, n = 256, 236
+    chain = chain_in_plane(torch.tensor(rng.uniform(0.13, 0.155, (B, n + 2)), dtype=torch.float32),
+                           torch.tensor(rng.uniform(1.6, 2.4, (B, n + 1)), dtype=torch.float32))
+    dih = torch.tensor(rng.uniform(-np.pi, np.pi, (B, n)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(B, n + 3, 3)), dtype=torch.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        x = [t.detach().to(dev).requires_grad_(True) for t in (dih, chain)]
+        y = _OneWay.apply(*x)
+        (y * g.to(dev)).sum().backward()
+        outs[str(dev)] = [t.detach().cpu() for t in (y, x[0].grad, x[1].grad)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_adc_steps_on_card_match_cpu(cuda, tmp_path):
+    """Two ADC steps at trp-cage scale ([128,128,2], B=256, 20 residues, CA
+    costs, angles and sidechains, the encoder input's sketch-map cost on)
+    on the card, through the sigmoid-loss kernels (two forward and two
+    backward launches a step), against the same steps on the CPU's
+    general path, from the same weights and indices.
+
+    At the initial weights the loss terms agree to 1e-5 relative and every
+    gradient leaf to 1e-3 in relative norm: the mean-abs costs
+    differentiate |x| to the sign of x, which differs between the devices
+    where x is within rounding of 0, and that moves single entries by up
+    to ~4e-4 of the leaf's largest (measured on the card). Adam's first step moves
+    each weight by the learning rate times the sign of its gradient, so a
+    gradient entry that is float32 rounding noise (a bias whose batch sum
+    nearly cancels) may step the other way on the other device: the second
+    step's losses agree to 1e-4 relative (or 1e-6 of the total loss, for a
+    term far below it), and the weights after two steps to 1e-4 in all but
+    1 % of their entries."""
+    import encodermap_tpu_torch as em
+    from encodermap_tpu_torch.convert import params_to_numpy
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.train.core import tree_unflatten
+
+    data = _adc_cvs(20, 1024)
+    idx = np.random.default_rng(1).integers(0, 1024, (2, 256))
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = em.ADCParameters(main_path=str(tmp_path / str(dev)), n_neurons=[128, 128, 2],
+                             batch_size=256, n_steps=2, steps_per_scan=2, seed=0,
+                             cartesian_pwd_start=1, cartesian_pwd_step=3,
+                             use_backbone_angles=True, use_sidechains=True,
+                             angle_cost_scale=1.0, distance_cost_scale=1.0)
+        emap = em.AngleDihedralCartesianEncoderMap(data, p, device=dev)
+        leaves = [t.detach().requires_grad_(True) for t in _leaves(emap.state.params)]
+        batch = tuple(torch.as_tensor(d[idx[0]], device=dev) for d in emap.train_data)
+        terms, _ = emap._loss_and_aux(tree_unflatten(emap.state.params, leaves), batch, 0)
+        loss = sum(v for k, v in terms.items() if k != "cartesian_cost_scale")
+        grads = [g.cpu().numpy() for g in torch.autograd.grad(loss, leaves)]
+        before = dict(_build.launch_counts)
+        hist = emap.train(index_stream=iter([idx]))
+        launched = {k: _build.launch_counts[k] - before.get(k, 0)
+                    for k in ("sigmoid_fwd", "sigmoid_bwd")}
+        runs[str(dev)] = dict(terms={k: float(v.detach()) for k, v in terms.items()},
+                              grads=grads,
+                              hist=hist, params=_leaves(params_to_numpy(emap.state.params)[0]),
+                              launched=launched)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu["launched"] == {"sigmoid_fwd": 4, "sigmoid_bwd": 4}  # 2 steps x 2
+    assert cpu["launched"] == {"sigmoid_fwd": 0, "sigmoid_bwd": 0}
+    bad = []  # every check runs; the failures are listed together
+    for k, ref in cpu["terms"].items():
+        if not (abs(gpu["terms"][k] - ref) <= 1e-5 * abs(ref)
+                and abs(gpu["hist"][k][0] - ref) <= 1e-5 * abs(ref)):
+            bad.append((k, "step 1", gpu["terms"][k], gpu["hist"][k][0], ref))
+        # a term far below the total (the center loss) is held to 1e-6 of it
+        a, b = gpu["hist"][k][1], cpu["hist"][k][1]
+        if not abs(a - b) <= max(1e-4 * abs(b), 1e-6 * cpu["hist"]["loss"][1]):
+            bad.append((k, "step 2", a, b))
+    for i, (a, b) in enumerate(zip(gpu["grads"], cpu["grads"])):
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        if not rel <= 1e-3:
+            bad.append(("gradient leaf", i, rel, float(np.abs(a - b).max()),
+                        float(np.abs(b).max())))
+    off = sum(int((np.abs(a - b) > 1e-4).sum()) for a, b in zip(gpu["params"], cpu["params"]))
+    if not off <= 0.01 * sum(a.size for a in cpu["params"]):
+        bad.append(("weights off by more than 1e-4", off))
+    assert not bad, bad
+
+
+def _leaves(tree):
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    return tree_leaves(tree)
