@@ -13,12 +13,15 @@ general route at batch 16384), drives the AngleDihedralCartesianEncoderMap
 (ADC) trainer on synthetic backbones at trp-cage scale (20 residues, the
 full width of BASELINE config 3), at 158 residues (the CA distance-matrix
 rows, 24,964 wide, on the sigmoid-loss kernels) and at 512 residues (the
-analytic Cartesian route), holds the sigmoid-loss kernels against their
-plain versions at each ADC width, and checks what comes out. Prints one JSON line per kernel
-set before the last line, the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
-code is non-zero and no result line is printed. Without a CUDA card it exits
-with code 2 at once.
+analytic Cartesian route), then in its two further modes at trp-cage
+scale: sidechain reconstruction (every atom of trp-cage backmapped inside
+the step) and multimer training (a trp-cage homodimer placed by decoded
+transforms). It holds the sigmoid-loss kernels against their plain
+versions at each ADC width, and checks what comes out. Prints one JSON
+line per kernel set before the last line, the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the exit code is non-zero and no result line is printed.
+Without a CUDA card it exits with code 2 at once.
 """
 
 from __future__ import annotations
@@ -667,6 +670,15 @@ def device_split(chunk, ms_step: float, steps: int, tag: str) -> float:
 ADC_SIG = (4.5, 12, 6, 1, 2, 6)  # ADCParameters' default sigmoid parameters
 CV_KEYS = ("central_angles", "central_dihedrals", "central_cartesians",
            "central_distances", "side_dihedrals")
+SIDECHAIN_KEYS = ("central_angles", "central_dihedrals", "all_cartesians",
+                  "central_distances", "side_angles", "side_dihedrals",
+                  "side_distances")
+#: trp-cage's sequence and its sidechain dihedrals per residue (chi1-chi5 of
+#: each residue type): 37 side dihedrals, 54 side atoms, 114 atoms in all
+TRP_CAGE = "NLYIQWLKDGGPSSGRPPPS"
+TRP_CAGE_SIDECHAIN_INFO = {1: 2, 2: 2, 3: 2, 4: 2, 5: 3, 6: 2, 7: 2, 8: 4, 9: 2,
+                           10: 0, 11: 0, 12: 2, 13: 1, 14: 1, 15: 0, 16: 5, 17: 2,
+                           18: 2, 19: 2, 20: 1}
 
 
 def adc_cvs(n_res: int, n_frames: int, seed: int = 0) -> dict:
@@ -896,6 +908,240 @@ def phase_adc_analytic(em, fs, _build, run_dir: Path) -> dict:
     return dict(counts=counts, kernels=kern, ms_dense=ms_d, ms_analytic=ms_a)
 
 
+def sidechain_cvs(n_frames: int, seed: int = 0, device: str = "cuda") -> dict:
+    """Synthetic trp-cage CVs with sidechains: random internals from
+    ``seed`` with numpy, in the ranges of
+    ``tests/test_sidechain_reconstruction.py``, and every atom backmapped
+    from them by the port's fast sidechain backmap in float64 on
+    ``device``; ``central_cartesians`` are the first 60 atoms (the
+    backbone), which ``train_for_references`` reads."""
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_fast, make_spec
+
+    spec = make_spec(TRP_CAGE_SIDECHAIN_INFO)
+    rng = np.random.default_rng(seed)
+    nb, ns, n = 3 * spec.n_residues, spec.n_sidechain_atoms, n_frames
+    x = (rng.uniform(0.13, 0.155, (n, nb - 1)), rng.uniform(1.7, 2.2, (n, nb - 2)),
+         rng.uniform(-np.pi, np.pi, (n, nb - 3)), rng.uniform(0.13, 0.16, (n, ns)),
+         rng.uniform(1.7, 2.2, (n, ns)),
+         rng.uniform(-np.pi, np.pi, (n, sum(TRP_CAGE_SIDECHAIN_INFO.values()))))
+    with torch.no_grad():
+        xyz = backmap_sidechains_fast(spec, *(torch.tensor(v, device=device) for v in x))
+    xyz = xyz.cpu().numpy()
+    cd, ca, cdi, sd, sa, sdi = x
+    return {k: np.asarray(v, np.float32) for k, v in (
+        ("central_angles", ca), ("central_dihedrals", cdi), ("all_cartesians", xyz),
+        ("central_distances", cd), ("side_angles", sa), ("side_dihedrals", sdi),
+        ("side_distances", sd), ("central_cartesians", xyz[:, :nb]))}
+
+
+def rigid_transform(seed: int) -> np.ndarray:
+    """One rigid ``(4, 4)`` transform for row vectors (``[xyz, 1] @ M``): a
+    random rotation and a shift of up to 2 nm, as ``tests/test_multimer.py``
+    draws them."""
+    rng = np.random.default_rng(seed)
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q *= np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    m = np.eye(4)
+    m[:3, :3], m[3, :3] = q.T, rng.uniform(-2, 2, 3)
+    return m
+
+
+def dimer_cvs(n_frames: int, lengths: tuple = (20, 20), seed: int = 0,
+              device: str = "cuda") -> dict:
+    """Synthetic multimer CVs: each protein's internals drawn from ``seed``
+    as ``adc_cvs`` draws them, concatenated protein by protein; each
+    protein backmapped from its own internals (float64 on ``device``) and
+    the others placed by fixed rigid transforms (``tests/test_multimer.py``
+    builds its dimer so); trp-cage's 37 sidechain dihedrals per protein."""
+    from encodermap_tpu_torch.ops.backmap import backmap_multimer
+
+    rng = np.random.default_rng(seed)
+    n = n_frames
+    parts = [(rng.uniform(0.13, 0.155, (n, 3 * L - 1)), rng.uniform(1.6, 2.4, (n, 3 * L - 2)),
+              rng.uniform(-np.pi, np.pi, (n, 3 * L - 3))) for L in lengths]
+    dist, ang, dih = (np.concatenate(x, axis=1) for x in zip(*parts))
+    mats = np.broadcast_to(np.stack([rigid_transform(seed + i)
+                                     for i in range(1, len(lengths))]),
+                           (n, len(lengths) - 1, 4, 4))
+    with torch.no_grad():
+        cart = backmap_multimer(list(lengths), *(torch.tensor(np.ascontiguousarray(v),
+                                                              device=device)
+                                                 for v in (dist, ang, dih, mats)))
+    side = rng.uniform(-np.pi, np.pi,
+                       (n, len(lengths) * sum(TRP_CAGE_SIDECHAIN_INFO.values())))
+    return {k: np.asarray(v, np.float32) for k, v in zip(
+        CV_KEYS, (ang, dih, cart.cpu().numpy(), dist, side))}
+
+
+def time_chunks(emap, tag: str) -> tuple:
+    """The chunk trainer alone: ms per step by CUDA events over 2 chunks
+    (after one to warm up), and the device's busy time and idle share over
+    one more (``device_split``). Returns (ms per step, busy ms per step)."""
+    trainer, dev_data, state = emap._get_trainer(), emap._device_data(), emap.state
+    steps = max(1, min(emap.p.steps_per_scan, emap.p.n_steps))
+
+    def chunk():
+        nonlocal state
+        state, _ = trainer(state, dev_data)
+
+    ms = time_ms(chunk, 2, warmup=1) / steps
+    busy = device_split(chunk, ms, steps, tag)
+    log(f"[{tag}] chunk trainer alone: {ms:.3f} ms/step (CUDA events, 2 chunks of "
+        f"{steps} steps), {emap.p.batch_size / ms * 1e3:.0f} samples/s")
+    return ms, busy
+
+
+def check_reload(em, emap, cvs: dict, run_dir: Path, tag: str) -> np.ndarray:
+    """A checkpoint reload must encode the training CVs bit for bit."""
+    latent = emap.encode()
+    again = em.AngleDihedralCartesianEncoderMap.from_checkpoint(cvs, run_dir)
+    check(np.array_equal(again.encode(), latent),
+          f"{tag}: reloaded checkpoint encodes differently")
+    log(f"[{tag}] checkpoint reload encodes identically")
+    return latent
+
+
+def phase_adc_sidechains(em, fs, _build, run_dir: Path) -> dict:
+    """Sidechain reconstruction at trp-cage scale: 20 residues with
+    ``TRP_CAGE_SIDECHAIN_INFO`` (114 atoms), 4096 frames, [128,128,2],
+    B=256, 200 steps in 2 chunks of 100. The sketch-map losses run on the
+    kernels at D=206 periodic (central and side angles and dihedrals) and
+    D=666 (the pairs of 20 CAs and 17 branch ends). Checks the launches,
+    the loss, generate's bond lengths, a checkpoint round trip and the fast
+    sidechain backmap against the sequential one in float64; times the
+    step and the sidechain backmap; holds the kernels at both widths."""
+    from encodermap_tpu_torch.models import adc
+    from encodermap_tpu_torch.ops.backmap_sidechains import (
+        backmap_sidechains,
+        backmap_sidechains_fast,
+    )
+    from encodermap_tpu_torch.ops.distances import pairwise_dist
+
+    tag = "adc sidechains"
+    cvs = sidechain_cvs(4096, seed=3)
+    p = adc_params(em, run_dir, 200, 100, reconstruct_sidechains=True,
+                   sidechain_info=TRP_CAGE_SIDECHAIN_INFO)
+    emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2)
+    spec = emap.sidechain_spec
+    check(spec.n_atoms == 114 and spec.n_sidechain_atoms == 54,
+          f"{tag}: the spec has {spec.n_atoms} atoms")
+    chunks = hist["loss"].reshape(2, 100).mean(1)
+    log(f"[{tag}] chunk mean loss {chunks.round(4).tolist()}")
+    check(chunks[1] < chunks[0], f"{tag}: the loss did not fall")
+
+    latent = check_reload(em, emap, cvs, run_dir, tag)
+    xyz = emap.generate(latent[:64])
+    check(xyz.shape == (64, 114, 3) and np.isfinite(xyz).all(),
+          f"{tag}: generate shape {xyz.shape}")
+    bb = np.linalg.norm(np.diff(xyz[:, :60], axis=1), axis=-1)
+    bonds, col = [], 60
+    for r, v in TRP_CAGE_SIDECHAIN_INFO.items():
+        if v:
+            chain = [(r - 1) * 3 + 1] + list(range(col, col + v + 1))
+            bonds += list(zip(chain[:-1], chain[1:]))
+            col += v + 1
+    side = np.stack([np.linalg.norm(xyz[:, b] - xyz[:, a], axis=-1) for a, b in bonds], 1)
+    bb_err = float(np.abs(bb - cvs["central_distances"].mean(0)).max())
+    side_err = float(np.abs(side - cvs["side_distances"].mean(0)).max())
+    log(f"[{tag}] generate {xyz.shape}: backbone bonds within {bb_err:.2e} nm and side "
+        f"bonds within {side_err:.2e} nm of the training means")
+    check(bb_err <= 1e-4 and side_err <= 1e-4, f"{tag}: generated bond lengths off the means")
+
+    rows = np.random.default_rng(1).integers(0, 4096, 256)
+    b64 = [torch.tensor(cvs[k][rows], device="cuda", dtype=torch.float64)
+           for k in SIDECHAIN_KEYS]
+    args = (b64[3], b64[0], b64[1], b64[6], b64[4], b64[5])
+    with torch.no_grad():
+        fast = backmap_sidechains_fast(spec, *args)
+        seq = backmap_sidechains(spec, *args, angle_clip=None)
+    seq_err = float((fast - seq).abs().max())
+    log(f"[{tag}] fast sidechain backmap against the sequential sweep, float64, B=256: "
+        f"max abs {seq_err:.3e} nm")
+    check(seq_err <= 1e-9, f"{tag}: the fast sidechain backmap is off the sequential one")
+
+    b = [torch.tensor(cvs[k][rows], device="cuda") for k in SIDECHAIN_KEYS]
+    with torch.no_grad():
+        lat = adc.encode_sidechains(emap.state.params, emap.p, b).contiguous()
+        enc_inp = torch.cat([b[0], b[1], b[4], b[5]], dim=1)
+        idx = torch.as_tensor(adc.sidechain_pwd_indices(emap.p, spec), device="cuda")
+        pairs = pairwise_dist(b[2][:, idx], flat=True)
+    check(enc_inp.shape[1] == 206 and pairs.shape[1] == 666,
+          f"{tag}: kernel widths {enc_inp.shape[1]}, {pairs.shape[1]}")
+    kern = adc_kernel_check(fs, {(206, 2 * math.pi): (enc_inp, lat, ADC_SIG),
+                                 (666, float("inf")): (pairs, lat, ADC_SIG)}, tag, reps=20)
+
+    ms, busy = time_chunks(emap, tag)
+    grads = [t.clone().requires_grad_(True) for t in (b[0], b[1], b[4], b[5])]
+    fwd_args = (b[3], grads[0], grads[1], b[6], grads[2], grads[3])
+    out = backmap_sidechains_fast(spec, *fwd_args)
+    g = torch.randn_like(out)
+    ms_f = time_ms(lambda: backmap_sidechains_fast(spec, *fwd_args), 20)
+    ms_b = time_ms(lambda: torch.autograd.grad(out, grads, g, retain_graph=True), 20)
+    log(f"[{tag}] stages at B=256 (CUDA events): sidechain backmap fwd {ms_f:.4f} ms, bwd "
+        f"{ms_b:.4f} ms; sigmoid kernels fwd+bwd "
+        + ", ".join(f"D={D} {v['fwd'][1] + v['bwd'][1]:.4f} ms" for (D, _), v in kern.items())
+        + f"; step {ms:.3f} ms, device busy {busy:.3f} ms")
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
+
+
+def phase_adc_multimer(em, fs, _build, run_dir: Path) -> dict:
+    """Multimer training on a trp-cage homodimer (``multimer_lengths=[20,
+    20]``, 120 atoms), 4096 frames, [128,128,2], B=256, 100 steps. The
+    kernels run at D=304 periodic (angles, dihedrals, side dihedrals) and
+    D=780 (the pairs of 40 CAs). Checks the launches, generate's shape and
+    each protein's bond lengths (the second's once its decoded transform is
+    undone), a checkpoint round trip; times the step; holds the kernels at
+    both widths."""
+    from encodermap_tpu_torch.ops.backmap import backmap_multimer
+
+    tag = "adc multimer"
+    cvs = dimer_cvs(4096, seed=4)
+    p = adc_params(em, run_dir, 100, 100, multimer_training="homogeneous_transformation",
+                   multimer_lengths=[20, 20])
+    emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2)
+    first, last = hist["loss"][:10].mean(), hist["loss"][-10:].mean()
+    log(f"[{tag}] mean loss of the first 10 steps {first:.4f}, of the last 10 {last:.4f}")
+    check(last < first, f"{tag}: the loss did not fall")
+
+    latent = check_reload(em, emap, cvs, run_dir, tag)
+    xyz = emap.generate(latent[:64])
+    check(xyz.shape == (64, 120, 3) and np.isfinite(xyz).all(),
+          f"{tag}: generate shape {xyz.shape}")
+    mats = emap.decode(latent[:64])[3].astype(np.float64)  # (64, 1, 4, 4)
+    second = np.einsum("bnj,bjk->bnk", xyz[:, 60:].astype(np.float64) - mats[:, 0, None, 3, :3],
+                       np.linalg.inv(mats[:, 0, :3, :3]))
+    means = cvs["central_distances"].mean(0)
+    errs = [float(np.abs(np.linalg.norm(np.diff(x, axis=1), axis=-1) - m).max())
+            for x, m in ((xyz[:, :60], means[:59]), (second, means[59:]))]
+    cond = float(np.linalg.cond(mats[:, 0, :3, :3]).max())
+    log(f"[{tag}] generate {xyz.shape}: bond lengths within {errs[0]:.2e} nm (protein 1) "
+        f"and {errs[1]:.2e} nm (protein 2, its decoded transform undone; largest "
+        f"condition number {cond:.1f}) of the training means")
+    check(max(errs) <= 1e-4, f"{tag}: generated bond lengths off the means")
+
+    rows = np.random.default_rng(1).integers(0, 4096, 256)
+    inputs = adc_kernel_inputs(emap, cvs, rows)
+    check(set(inputs) == {(304, 2 * math.pi), (780, float("inf"))},
+          f"{tag}: kernel widths {sorted(inputs)}")
+    kern = adc_kernel_check(fs, inputs, tag, reps=20)
+
+    ms, busy = time_chunks(emap, tag)
+    b = [torch.tensor(cvs[k][rows], device="cuda") for k in CV_KEYS]
+    ang, dih = (t.clone().requires_grad_(True) for t in (b[0], b[1]))
+    eye = torch.eye(4, device="cuda").expand(256, 1, 4, 4).clone().requires_grad_(True)
+    out = backmap_multimer([20, 20], b[3], ang, dih, eye)
+    g = torch.randn_like(out)
+    ms_f = time_ms(lambda: backmap_multimer([20, 20], b[3], ang, dih, eye), 20)
+    ms_b = time_ms(lambda: torch.autograd.grad(out, (ang, dih, eye), g, retain_graph=True), 20)
+    log(f"[{tag}] stages at B=256 (CUDA events): multimer backmap fwd {ms_f:.4f} ms, bwd "
+        f"{ms_b:.4f} ms; sigmoid kernels fwd+bwd "
+        + ", ".join(f"D={D} {v['fwd'][1] + v['bwd'][1]:.4f} ms" for (D, _), v in kern.items())
+        + f"; step {ms:.3f} ms, device busy {busy:.3f} ms")
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -923,9 +1169,14 @@ def main() -> int:
         launches += phase_train(em, _build, Path(tmp) / "dihedral", periodic=True)
         general = phase_general(em, _build, Path(tmp) / "general",
                                 router[3, 16384][0])
-        adc_legs = [phase_adc(em, fs, _build, Path(tmp) / "adc"),
-                    phase_adc_matrix(em, fs, _build, Path(tmp) / "adc158"),
-                    phase_adc_analytic(em, fs, _build, Path(tmp) / "adc512")]
+        adc_legs = []
+        for name, phase in (("adc", phase_adc), ("adc158", phase_adc_matrix),
+                            ("adc512", phase_adc_analytic),
+                            ("adc_sidechains", phase_adc_sidechains),
+                            ("adc_multimer", phase_adc_multimer)):
+            t0 = time.perf_counter()
+            adc_legs.append(phase(em, fs, _build, Path(tmp) / name))
+            log(f"[leg] {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
 
     main_sig = sig["D=3 euclid"]
     cube = fused["cube d0=3"]

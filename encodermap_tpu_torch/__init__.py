@@ -8,7 +8,9 @@ the chunked trainer with its fused train kernel and sigmoid-loss kernels,
 checkpoints that load in both packages, and encode/decode/generate. Slice 2
 is the AngleDihedralCartesianEncoderMap (ADC): internal coordinates,
 backmapping inside the step, the Cartesian costs, on the same sigmoid-loss
-kernels.
+kernels. Slice 3 adds the ADC's sidechain reconstruction
+(``reconstruct_sidechains=True``) and multimer training
+(``multimer_training="homogeneous_transformation"``).
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed::
 

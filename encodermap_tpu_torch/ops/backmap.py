@@ -25,14 +25,20 @@ per-component planes, both halves in one padded call) are not ported: the
 port takes the forms the JAX package takes on the CPU. Quaternions are
 ``(4, B, n)`` tensors ``(w, x, y, z)``, vectors ``(3, B, n)``.
 
-``backmap_multimer``, ``guess_*`` and ``merge_cartesians`` wait for the
-sidechain and multimer slice of the port.
+* :func:`backmap_multimer` rebuilds each protein of a multimer with
+  :func:`backmap` and places proteins 2..N by ``(B, 4, 4)`` homogeneous
+  transforms, a plain full-float32 product (TF32 stays off).
+* :func:`guess_amide_H`, :func:`guess_amide_O` and :func:`merge_cartesians`
+  add the sp2 hydrogens and oxygens; :func:`rotation_matrices` and
+  :func:`straight_tetrahedral_chain` are the JAX package's helpers.
 """
 
 from __future__ import annotations
 
 from math import pi
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -42,6 +48,13 @@ __all__ = [
     "split_and_reverse_dihedrals",
     "split_and_reverse_cartesians",
     "backmap",
+    "backmap_multimer",
+    "straight_tetrahedral_chain",
+    "rotation_matrices",
+    "guess_sp2_atom",
+    "guess_amide_H",
+    "guess_amide_O",
+    "merge_cartesians",
 ]
 
 
@@ -271,3 +284,134 @@ def backmap(distances: torch.Tensor, angles: torch.Tensor,
         angles.shape[0], -1)
     chain = chain_in_plane(mean_lengths, angles)
     return dihedrals_to_cartesian(dihedrals + pi, chain)
+
+
+def straight_tetrahedral_chain(n_atoms: Optional[int] = None,
+                               bond_lengths: Optional[np.ndarray] = None
+                               ) -> np.ndarray:
+    """A straight chain with tetrahedral-ish geometry, in numpy (reference
+    ``encodermap_tf1/backmapping.py:71-94``)."""
+    dx = np.cos(70.63 / 180 * np.pi)
+    dy = np.sin(70.63 / 180 * np.pi)
+    if n_atoms is not None and bond_lengths is None:
+        coordinates = np.zeros((n_atoms, 3), dtype=np.float32)
+        indices = np.repeat(np.arange(int(n_atoms / 2) + 1), 2)
+        coordinates[:, 0] = indices[1:n_atoms + 1] + dx * indices[0:n_atoms]
+        coordinates[:, 1] = dy * indices[0:n_atoms]
+        return coordinates
+    if bond_lengths is not None:
+        bond_lengths = np.asarray(bond_lengths)
+        n_bonds = len(bond_lengths)
+        n_atoms = n_atoms or n_bonds + 1
+        dxs = bond_lengths * np.tile([1, dx], int(n_atoms / 2))[:n_bonds]
+        dys = bond_lengths * np.tile([0, dy], int(n_atoms / 2))[:n_bonds]
+        coordinates = np.zeros((n_atoms, 3), dtype=np.float32)
+        coordinates[1:, 0] = np.cumsum(dxs)
+        coordinates[1:, 1] = np.cumsum(dys)
+        return coordinates
+    raise ValueError("provide n_atoms or bond_lengths")
+
+
+def rotation_matrices(axis_unit: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """``(..., 3, 3)`` Rodrigues matrices for row vectors, ``x @ R`` (the
+    reference's convention, ``misc/backmapping.py:1950-1970``): a column
+    rotation by ``-angle`` about the ``(..., 3)`` unit axes."""
+    x, y, z = axis_unit[..., 0], axis_unit[..., 1], axis_unit[..., 2]
+    zeros = torch.zeros_like(x)
+    K = torch.stack([torch.stack([zeros, -z, y], dim=-1),
+                     torch.stack([z, zeros, -x], dim=-1),
+                     torch.stack([-y, x, zeros], dim=-1)], dim=-2)
+    c = torch.cos(angle)[..., None, None]
+    s = torch.sin(angle)[..., None, None]
+    eye = torch.eye(3, dtype=axis_unit.dtype, device=axis_unit.device)
+    outer = axis_unit[..., :, None] * axis_unit[..., None, :]
+    return c * eye + s * K + (1.0 - c) * outer
+
+
+def guess_sp2_atom(cartesians: torch.Tensor, indices: Sequence[int],
+                   angle_to_previous: float, bond_length: float) -> torch.Tensor:
+    """sp2-bonded atoms (H on N, O on C): the previous bond, rotated about
+    the local plane's normal and scaled to ``bond_length`` (reference
+    ``misc/backmapping.py:1920-1941``), for every index at once."""
+    idx = np.asarray(indices, dtype=np.int64)
+    prev_vec = cartesians[:, idx - 1] - cartesians[:, idx]
+    next_idx = np.where(idx + 1 < cartesians.shape[1], idx + 1, idx - 2)
+    next_vec = cartesians[:, next_idx] - cartesians[:, idx]
+    normal = torch.linalg.cross(prev_vec, next_vec, dim=-1)
+    normal = normal / torch.linalg.norm(normal, dim=-1, keepdim=True)
+    R = rotation_matrices(normal, torch.full(prev_vec.shape[:-1], angle_to_previous,
+                                             dtype=cartesians.dtype,
+                                             device=cartesians.device))
+    bond_vec = (prev_vec[..., None, :] @ R)[..., 0, :]
+    bond_vec = bond_vec * (bond_length / torch.linalg.norm(bond_vec, dim=-1, keepdim=True))
+    return cartesians[:, idx] + bond_vec
+
+
+def guess_amide_H(cartesians: torch.Tensor, N_indices: Sequence[int]) -> torch.Tensor:
+    """Amide H at 123 deg and 1.10 from each backbone N but the first
+    (reference ``misc/backmapping.py:1944-1945``)."""
+    return guess_sp2_atom(cartesians, list(N_indices)[1:], 123 / 180 * pi, 1.10)
+
+
+def guess_amide_O(cartesians: torch.Tensor, C_indices: Sequence[int]) -> torch.Tensor:
+    """Carbonyl O at 121 deg and 1.24 from each backbone C (reference
+    ``misc/backmapping.py:1948-1949``)."""
+    return guess_sp2_atom(cartesians, list(C_indices), 121 / 180 * pi, 1.24)
+
+
+def merge_cartesians(central_cartesians: torch.Tensor, N_indices: Sequence[int],
+                     O_indices: Sequence[int], H_cartesians: torch.Tensor,
+                     O_cartesians: torch.Tensor) -> torch.Tensor:
+    """The guessed H and O atoms interleaved into the backbone chain
+    (reference ``misc/backmapping.py:1973-1990``), as one gather whose
+    order is fixed on the host."""
+    n_central = central_cartesians.shape[1]
+    N_set, O_set = set(list(N_indices)[1:]), set(O_indices)
+    source, h_i, o_i = [(0, 0)], 0, 0
+    for i in range(1, n_central):
+        source.append((0, i))
+        if i in N_set:
+            source.append((1, h_i))
+            h_i += 1
+        elif i in O_set:
+            source.append((2, o_i))
+            o_i += 1
+    arrays = [central_cartesians, H_cartesians, O_cartesians]
+    out = torch.cat([arrays[a][:, j:j + 1] for a, j in source], dim=1)
+    if out.shape[1] != n_central + H_cartesians.shape[1] + O_cartesians.shape[1]:
+        raise ValueError("the N and O indices do not match the guessed atoms")
+    return out
+
+
+def backmap_multimer(protein_lengths: Sequence[int], distances: torch.Tensor,
+                     angles: torch.Tensor, dihedrals: torch.Tensor,
+                     matrices: torch.Tensor) -> torch.Tensor:
+    """Backmap a multimer: each protein's chain rebuilt on its own, proteins
+    2..N placed by homogeneous transforms (the documented intent of the
+    reference's ``BackMapLayerTransformations``, ``models/layers.py:
+    990-1092``).
+
+    Args:
+        protein_lengths: residues per protein.
+        distances: ``(B, sum 3L_i - 1)``, protein by protein; each
+            protein's bond lengths are its batch means, as in :func:`backmap`.
+        angles: ``(B, sum 3L_i - 2)``.
+        dihedrals: ``(B, sum 3L_i - 3)``.
+        matrices: ``(B, n_proteins - 1, 4, 4)`` transforms for row vectors,
+            ``[xyz, 1] @ M``, applied as a full-float32 product.
+
+    Returns:
+        ``(B, sum 3L_i, 3)``.
+    """
+    outs = []
+    d0 = a0 = di0 = 0
+    for i, L in enumerate(protein_lengths):
+        nd, na, ndi = 3 * L - 1, 3 * L - 2, 3 * L - 3
+        xyz = backmap(distances[:, d0:d0 + nd], angles[:, a0:a0 + na],
+                      dihedrals[:, di0:di0 + ndi])
+        if i != 0:
+            homo = torch.cat([xyz, torch.ones_like(xyz[..., :1])], dim=-1)
+            xyz = (homo @ matrices[:, i - 1])[..., :3]
+        outs.append(xyz)
+        d0, a0, di0 = d0 + nd, a0 + na, di0 + ndi
+    return torch.cat(outs, dim=1)

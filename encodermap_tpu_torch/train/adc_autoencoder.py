@@ -11,6 +11,14 @@ soft-started Cartesian cost; ``train_for_references``; the clash and RMSD
 tracking; ``encode`` / ``decode`` / ``generate(backend="scan")`` / ``save``
 / ``from_checkpoint``, with checkpoints that load in both packages.
 
+Two further modes. ``reconstruct_sidechains=True`` trains on seven CVs
+(central_angles, central_dihedrals, all_cartesians, central_distances,
+side_angles, side_dihedrals, side_distances) with ``p.sidechain_info``
+(residue -> sidechain dihedrals) and backmaps every atom inside the step.
+``multimer_training="homogeneous_transformation"`` with
+``p.multimer_lengths`` rebuilds each protein and places the others by
+decoded 4x4 transforms.
+
 The Cartesian costs take one of three routes by the selected-atom count,
 with the JAX package's TPU-measured thresholds (kept for parity until the
 H100's are measured): dense ``(B, n, n)`` matrices below
@@ -21,8 +29,8 @@ the matrix rows from 64), the hand-written backward of
 of the encoder input and of the flat or matrix CA pairs run on the
 sigmoid-loss kernels: twice forward and twice backward per step.
 
-Waiting for later slices (each raises ``NotImplementedError``): sidechain
-reconstruction, multimer training, streaming, and ``generate`` onto a
+Waiting for later slices (each raises ``NotImplementedError``): streaming
+(``train_streaming``, ``from_ensemble_h5``) and ``generate`` onto a
 topology (``backend="topology"``, ``"mdtraj"``, ``"mdanalysis"``).
 """
 
@@ -37,12 +45,14 @@ import torch
 from .. import losses as L
 from ..models import adc
 from ..ops.backmap import backmap as backmap_op
+from ..ops.backmap import backmap_multimer
+from ..ops.backmap_sidechains import backmap_sidechains_fast, make_spec
 from ..ops.blocked_cartesian import MIN_BLOCKED_ATOMS
 from ..ops.cartesian_analytic import MIN_ANALYTIC_ATOMS
 from ..ops.distances import pairwise_dist
 from ..ops.kabsch import rmsd as rmsd_op
 from ..parameters import ADCParameters
-from .autoencoder import Autoencoder
+from .autoencoder import STREAMING_LATER, Autoencoder
 from .core import tree_map
 
 __all__ = ["AngleDihedralCartesianEncoderMap"]
@@ -58,8 +68,15 @@ MIN_MATRIX_ATOMS = 64
 ENCODE_CHUNK = 8192
 
 
+SIDECHAIN_CVS = ("central_angles", "central_dihedrals", "all_cartesians",
+                 "central_distances", "side_angles", "side_dihedrals",
+                 "side_distances")
+
+
 def _needed_cv_names(p: ADCParameters) -> list[str]:
-    adc.check_supported(p)
+    """The CV names this parameter set trains on, in model input order."""
+    if p.reconstruct_sidechains:
+        return list(SIDECHAIN_CVS)
     return list(CV_ORDER[:4]) + (["side_dihedrals"] if p.use_sidechains else [])
 
 
@@ -80,7 +97,7 @@ def _extract_cvs(trajs: Any, p: ADCParameters) -> tuple[np.ndarray, ...]:
     out = []
     for k in needed:
         arr = np.asarray(cvs[k], np.float32)
-        if k == "central_cartesians" and arr.ndim == 2:
+        if k in ("central_cartesians", "all_cartesians") and arr.ndim == 2:
             arr = arr.reshape(len(arr), -1, 3)
         out.append(arr)
     return tuple(out)
@@ -110,25 +127,56 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
                  dataset: Optional[tuple] = None,
                  learning_rate_schedule=None, device: Any = None) -> None:
         p = parameters if parameters is not None else ADCParameters()
-        adc.check_supported(p)
+        if p.multimer_training is not None and p.reconstruct_sidechains:
+            # before the CVs: the reconstruct path would ask for 7 of them
+            raise ValueError("multimer training and reconstruct_sidechains are "
+                             "mutually exclusive (reference models.py:1108-1111)")
         self._init_run(p, "functional", read_only, learning_rate_schedule, device)
         self.trajs = trajs
         if dataset is not None:
             self.train_data = tuple(np.asarray(d, np.float32) for d in dataset)
         else:
             self.train_data = _extract_cvs(trajs, self.p)
-        side = self.train_data[4] if len(self.train_data) == 5 else None
-        self.shapes = adc.ADCShapes.from_data(*self.train_data[:4], side)
+        if self.p.reconstruct_sidechains:
+            self.shapes = adc.ADCSidechainShapes.from_data(*self.train_data)
+            info = self.p.sidechain_info
+            if info is None:
+                raise ValueError(
+                    "reconstruct_sidechains=True needs p.sidechain_info "
+                    "(residue -> n sidechain dihedrals)")
+            self.sidechain_spec = make_spec({int(k): int(v) for k, v in info.items()})
+        else:
+            side = self.train_data[4] if len(self.train_data) == 5 else None
+            self.shapes = adc.ADCShapes.from_data(*self.train_data[:4], side)
         # NaNs mark values missing after a mixed-topology alignment: the
         # masked-dense "sparse" mode with per-input densifiers
         # (reference autoencoder.py:796-800)
         self.sparse = any(np.isnan(a).any() for a in self.train_data)
-        self._init_state(model_params, lambda gen: adc.init_params(
-            gen, self.p, self.shapes, sparse=self.sparse))
+        if self.p.multimer_training is not None:
+            adc.validate_multimer(self.p, self.shapes, sparse=self.sparse)
+        if self.sparse and self.p.reconstruct_sidechains:
+            raise ValueError(
+                "reconstruct_sidechains=True does not support NaN-padded "
+                "(mixed-topology sparse) CVs: the sidechain model has no "
+                "densifier layers. Train per-topology, or drop "
+                "reconstruct_sidechains.")
+        self._init_state(model_params, lambda gen: (
+            adc.init_sidechain_params(gen, self.p, self.shapes)
+            if self.p.reconstruct_sidechains else
+            adc.init_params(gen, self.p, self.shapes, sparse=self.sparse)))
 
     @classmethod
     def _parameters_class(cls):
         return ADCParameters
+
+    @classmethod
+    def from_ensemble_h5(cls, path: Union[str, Path],
+                         parameters: Optional[ADCParameters] = None,
+                         prototype_frames: int = 4, **kwargs: Any
+                         ) -> "AngleDihedralCartesianEncoderMap":
+        """A model whose input widths come from an ensemble HDF5 file:
+        streaming, which is slice 4 of the port."""
+        raise NotImplementedError(f"from_ensemble_h5 {STREAMING_LATER}")
 
     # ---------------------------------------------------------------- losses
     def _loss_terms(self, params: dict, batch: tuple, step: int = 0) -> dict:
@@ -140,6 +188,8 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         """Loss terms, and ``(back_cartesians, input_cartesians)`` for the
         clash and RMSD tracking."""
         p = self.p
+        if p.reconstruct_sidechains:
+            return self._loss_terms_sidechains(params, batch, step)
         if self.sparse:
             dens_params = params
             if not p.trainable_dense_to_sparse:
@@ -160,24 +210,8 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         enc_inp = torch.cat(groups, dim=1) if len(groups) > 1 else groups[0]
 
         scale = L.soft_start_scale(p, step, device=latent.device)
-        inp_sel = adc._ca_slice(p, inp_cartesians)
-        out_sel = adc._ca_slice(p, back)
-        n_sel = inp_sel.shape[1]
-        if n_sel >= MIN_BLOCKED_ATOMS:
-            cart_loss, cdist_loss = L.cartesian_losses_blocked(
-                inp_sel, out_sel, latent, p, scale=scale)
-        elif n_sel >= MIN_ANALYTIC_ATOMS:
-            cart_loss, cdist_loss = L.cartesian_losses_analytic(
-                inp_sel, out_sel, latent, p, scale=scale)
-        else:
-            inp_mat = pairwise_dist(inp_sel)
-            cart_loss = L.cartesian_loss_matrix(inp_mat, pairwise_dist(out_sel),
-                                                p, scale=scale)
-            cdist_loss = (
-                L.cartesian_distance_loss_matrix(inp_mat, latent, p)
-                if n_sel >= MIN_MATRIX_ATOMS else
-                L.cartesian_distance_loss(pairwise_dist(inp_sel, flat=True),
-                                          latent, p))
+        cart_loss, cdist_loss = self._cartesian_terms(
+            adc._ca_slice(p, inp_cartesians), adc._ca_slice(p, back), latent, scale)
         terms = {
             "dihedral_loss": L.dihedral_loss(inp_dihedrals, out_dihedrals, p),
             "angle_loss": L.angle_loss(inp_angles, out_angles, p),
@@ -194,10 +228,65 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         terms["cartesian_cost_scale"] = scale
         return terms, (back, inp_cartesians)
 
+    def _cartesian_terms(self, inp_sel: torch.Tensor, out_sel: torch.Tensor,
+                         latent: torch.Tensor, scale: torch.Tensor) -> tuple:
+        """The Cartesian and Cartesian-distance costs of the selected atoms,
+        by the route their count takes."""
+        p = self.p
+        n_sel = inp_sel.shape[1]
+        if n_sel >= MIN_BLOCKED_ATOMS:
+            return L.cartesian_losses_blocked(inp_sel, out_sel, latent, p, scale=scale)
+        if n_sel >= MIN_ANALYTIC_ATOMS:
+            return L.cartesian_losses_analytic(inp_sel, out_sel, latent, p, scale=scale)
+        inp_mat = pairwise_dist(inp_sel)
+        cart_loss = L.cartesian_loss_matrix(inp_mat, pairwise_dist(out_sel), p,
+                                            scale=scale)
+        cdist_loss = (
+            L.cartesian_distance_loss_matrix(inp_mat, latent, p)
+            if n_sel >= MIN_MATRIX_ATOMS else
+            L.cartesian_distance_loss(pairwise_dist(inp_sel, flat=True), latent, p))
+        return cart_loss, cdist_loss
+
+    def _loss_terms_sidechains(self, params: dict, batch: tuple, step: int
+                               ) -> tuple[dict, tuple]:
+        """The reconstruct mode's terms (reference ``models.py:2306-2459``):
+        the side angles join the angle cost, and the sketch-map cost sees
+        all four encoder inputs, the JAX package's recorded divergence (the
+        reference truncates them to three, ``loss_functions.py:279-281``)."""
+        p = self.p
+        inp_ca, inp_cdi, inp_all_cart, _, inp_sa, inp_sdi, _ = batch
+        out_ca, out_cdi, out_sa, out_sdi, back, _, _, latent = adc.forward_sidechains(
+            params, p, batch, self.shapes, self.sidechain_spec, with_pairs=False)
+        enc_inp = torch.cat([inp_ca, inp_cdi, inp_sa, inp_sdi], dim=1)
+        scale = L.soft_start_scale(p, step, device=latent.device)
+        idx = torch.as_tensor(adc.sidechain_pwd_indices(p, self.sidechain_spec),
+                              device=latent.device)
+        cart_loss, cdist_loss = self._cartesian_terms(inp_all_cart[:, idx], back[:, idx],
+                                                      latent, scale)
+        terms = {
+            "dihedral_loss": L.dihedral_loss(inp_cdi, out_cdi, p),
+            "angle_loss": L.angle_loss(inp_ca, out_ca, p) + L.angle_loss(inp_sa, out_sa, p),
+            "side_dihedral_loss": L.side_dihedral_loss(inp_sdi, out_sdi, p),
+            "cartesian_loss": cart_loss,
+            "distance_loss": L.distance_loss(enc_inp, latent, p),
+            "cartesian_distance_loss": cdist_loss,
+            "center_loss": L.center_loss(latent, p),
+            "regularization_loss": L.regularization_loss(adc.regularization_sum(params), p),
+            "cartesian_cost_scale": scale,
+        }
+        return terms, (back, inp_all_cart)
+
     def _metric_io(self, params: dict, batch: tuple) -> tuple:
         """``(y_true, y_pred)`` for metric objects: the (densified) input
         tuple and ``(out_angles, out_dihedrals, back_cartesians, inp_pair,
-        out_pair[, out_side])``, the coordinates at index 2."""
+        out_pair[, out_side])``, the coordinates at index 2; in reconstruct
+        mode ``(out_central_angles, out_central_dihedrals, back_cartesians,
+        out_side_angles, out_side_dihedrals, inp_pair, out_pair)``."""
+        if self.p.reconstruct_sidechains:
+            out_ca, out_cdi, out_sa, out_sdi, back, inp_pair, out_pair, _ = \
+                adc.forward_sidechains(params, self.p, batch, self.shapes,
+                                       self.sidechain_spec)
+            return batch, (out_ca, out_cdi, back, out_sa, out_sdi, inp_pair, out_pair)
         if self.sparse:
             batch = adc.densify_inputs(params, batch)
         out_angles, out_dihedrals, out_side, back, inp_pair, out_pair, _ = \
@@ -257,6 +346,19 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         p_ref = ADCParameters(cartesian_cost_scale=1, angle_cost_scale=1,
                               dihedral_cost_scale=1)
         angles, dihedrals, cartesians, distances = self.train_data[:4]
+        if self.p.reconstruct_sidechains:
+            # the dummy model backmaps the central chain only, so the
+            # reference normalizes on central_cartesians (autoencoder.py:1835)
+            cvs = self.trajs if isinstance(self.trajs, Mapping) \
+                else getattr(self.trajs, "CVs", None)
+            if cvs is None or "central_cartesians" not in cvs:
+                raise ValueError(
+                    "train_for_references with reconstruct_sidechains needs the "
+                    "'central_cartesians' CV (the reference normalizes on the "
+                    "central chain, autoencoder.py:1835)")
+            cartesians = np.asarray(cvs["central_cartesians"], np.float32)
+            if cartesians.ndim == 2:
+                cartesians = cartesians.reshape(len(cartesians), -1, 3)
         n = len(angles)
         nsteps = min(maxiter, max(1, n // self.p.batch_size))
 
@@ -267,9 +369,17 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         mean_angles = dev(np.nanmean(angles, 0, keepdims=True))
         mean_dihedrals = dev(np.nanmean(dihedrals, 0, keepdims=True))
         mean_lengths = dev(np.nanmean(distances, 0, keepdims=True))
+        lengths = adc.multimer_lengths_list(self.p)
         with torch.no_grad():
-            gen_pd = adc.cartesian_pwd_slice(
-                self.p, backmap_op(mean_lengths, mean_angles, mean_dihedrals))
+            if lengths:
+                # each protein rebuilt, the others at identity: the dummy
+                # model predicts no transforms
+                eye = torch.eye(4, device=self.device).expand(1, len(lengths) - 1, 4, 4)
+                gen = backmap_multimer(lengths, mean_lengths, mean_angles,
+                                       mean_dihedrals, eye)
+            else:
+                gen = backmap_op(mean_lengths, mean_angles, mean_dihedrals)
+            gen_pd = adc.cartesian_pwd_slice(self.p, gen)
         rng = np.random.default_rng(self.p.seed if self.p.seed is not None else 0)
         acc = {"angle_cost": [], "dihedral_cost": [], "cartesian_cost": []}
         if self.sparse:
@@ -306,7 +416,10 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
     def encode(self, data: Optional[Any] = None) -> np.ndarray:
         """Latent projection of ``(angles, dihedrals[, side_dihedrals])``,
         the full CV tuple, a CV dict, a stacked (angles | dihedrals | side)
-        matrix, or the training CVs; ``ENCODE_CHUNK`` rows per call."""
+        matrix, or the training CVs; ``ENCODE_CHUNK`` rows per call. A
+        reconstruct model takes ``(central_angles, central_dihedrals,
+        side_angles, side_dihedrals)`` or its seven CVs; a multimer model
+        needs the coordinates, so the full CV tuple or a dict."""
         if data is None:
             data = self.train_data
         if isinstance(data, Mapping):
@@ -321,17 +434,38 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
             for i in range(0, max(len(arrs[0]), 1), ENCODE_CHUNK):
                 chunk = tuple(torch.tensor(a[i:i + ENCODE_CHUNK], device=self.device)
                               for a in arrs)
-                if self.sparse:
-                    chunk = adc.densify_inputs(params, chunk)
-                outs.append(adc.encode(params, self.p, chunk).cpu().numpy())
+                if self.p.reconstruct_sidechains:
+                    latent = adc.encode_sidechains(params, self.p, chunk)
+                else:
+                    if self.sparse:
+                        chunk = adc.densify_inputs(params, chunk)
+                    latent = adc.encode(params, self.p, chunk)
+                outs.append(latent.cpu().numpy())
         return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
 
     def _as_model_inputs(self, arrs: tuple) -> tuple:
-        """Place a user tuple in the model's five input slots: the side
-        dihedrals sit in slot 4, after cartesians and distances."""
-        if len(arrs) == 5:
+        """Place a user tuple in the model's input slots: the side
+        dihedrals sit in slot 4, after cartesians and distances (slots 4
+        and 5 with the side angles in reconstruct mode, of seven)."""
+        full = 7 if self.p.reconstruct_sidechains else 5
+        if self.p.multimer_training is not None and (
+                len(arrs) != full or arrs[2].shape[1] == 0):
+            raise ValueError(
+                "multimer models build the encoder's pairwise-distance "
+                "block from the input cartesians; encode() needs the full "
+                "5-CV tuple (angles, dihedrals, cartesians, distances, "
+                "side_dihedrals) or a CV dict with central_cartesians")
+        if len(arrs) == full:
             return arrs
         z = np.zeros((len(arrs[0]), 0), np.float32)
+        if self.p.reconstruct_sidechains:
+            if len(arrs) == 4:
+                ca, cdi, sa, sdi = arrs
+                return ca, cdi, z, z, sa, sdi, z
+            raise ValueError(
+                f"encode() for reconstruct_sidechains models takes the 4-tuple "
+                f"(central_angles, central_dihedrals, side_angles, "
+                f"side_dihedrals) or the full 7-CV tuple; got {len(arrs)} arrays")
         if len(arrs) == 4:
             if self.p.use_sidechains:
                 raise ValueError(
@@ -353,6 +487,10 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
     def _split_stacked(self, data: np.ndarray) -> tuple:
         """Split a stacked (angles | dihedrals | side) matrix by the model's
         widths; untrained angles get a zero placeholder."""
+        if self.p.reconstruct_sidechains:
+            raise ValueError("a reconstruct_sidechains model takes (central_angles, "
+                             "central_dihedrals, side_angles, side_dihedrals), "
+                             "not a stacked matrix")
         s = self.shapes
         cols = [s.n_angles] if self.p.use_backbone_angles else []
         cols.append(s.n_dihedrals)
@@ -377,21 +515,30 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
     def decode(self, latent: np.ndarray) -> tuple:
         """Latent points to ``(angles, dihedrals[, side_dihedrals])``; the
         training set's mean angles stand in when angles are not trained
-        (``autoencoder.py:2502``)."""
+        (``autoencoder.py:2502``). A multimer model adds the ``(n, n_proteins
+        - 1, 4, 4)`` transforms; a reconstruct model gives ``(central_angles,
+        central_dihedrals, side_angles, side_dihedrals)``."""
         with torch.no_grad():
             z = torch.tensor(np.asarray(latent, np.float32), device=self.device)
-            out_angles, out_dihedrals, out_side = adc.decode(
-                self.state.params, self.p, z, self.shapes)
+            if self.p.reconstruct_sidechains:
+                return tuple(x.cpu().numpy() for x in adc.decode_sidechains(
+                    self.state.params, self.p, z, self.shapes))
+            decoded = adc.decode(self.state.params, self.p, z, self.shapes)
+            out_angles, out_dihedrals, out_side = decoded[:3]
             if out_angles is None:
                 out_angles = self._mean_cv(0).expand(len(z), -1)
         outs = (out_angles.cpu().numpy(), out_dihedrals.cpu().numpy())
-        return outs if out_side is None else outs + (out_side.cpu().numpy(),)
+        if out_side is not None:
+            outs += (out_side.cpu().numpy(),)
+        return outs + tuple(x.cpu().numpy() for x in decoded[3:])
 
     def generate(self, points: np.ndarray, backend: str = "scan",
                  top: Any = None, progbar: Any = None) -> np.ndarray:
         """Decode latent points and backmap them to ``(n_points, n_atoms,
         3)`` coordinates with the training set's mean bond lengths (and
-        mean angles when angles are not trained).
+        mean angles when angles are not trained): the mean central and side
+        bond lengths and every atom in reconstruct mode, each protein placed
+        by its decoded transform in multimer mode.
 
         ``backend="scan"`` is the in-graph backmapping. The topology
         backends (``"topology"``, ``"mdtraj"``, ``"mdanalysis"``) rebuild a
@@ -408,11 +555,21 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
                 f"backend='scan'")
         with torch.no_grad():
             z = torch.tensor(np.asarray(points, np.float32), device=self.device)
-            out_angles, out_dihedrals, _ = adc.decode(self.state.params, self.p,
-                                                      z, self.shapes)
+            lengths = self._mean_cv(3).expand(len(z), -1)
+            if self.p.reconstruct_sidechains:
+                out_ca, out_cdi, out_sa, out_sdi = adc.decode_sidechains(
+                    self.state.params, self.p, z, self.shapes)
+                return backmap_sidechains_fast(
+                    self.sidechain_spec, lengths, out_ca, out_cdi,
+                    self._mean_cv(6).expand(len(z), -1), out_sa, out_sdi).cpu().numpy()
+            decoded = adc.decode(self.state.params, self.p, z, self.shapes)
+            out_angles, out_dihedrals = decoded[:2]
             if out_angles is None:
                 out_angles = self._mean_cv(0).expand(len(z), -1)
-            lengths = self._mean_cv(3).expand(len(z), -1)
+            if self.p.multimer_training is not None:
+                return backmap_multimer(adc.multimer_lengths_list(self.p), lengths,
+                                        out_angles, out_dihedrals,
+                                        decoded[3]).cpu().numpy()
             return backmap_op(lengths, out_angles, out_dihedrals).cpu().numpy()
 
     # ----------------------------------------------------------- persistence

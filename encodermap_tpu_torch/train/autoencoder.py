@@ -58,6 +58,11 @@ from .core import (
 
 __all__ = ["Autoencoder", "EncoderMap", "DihedralEncoderMap"]
 
+#: what a streaming entry point says: it waits for slice 4 of the port
+STREAMING_LATER = ("(streaming from HDF5) is not ported to encodermap_tpu_torch "
+                   "yet; it is slice 4 of the port (scale-out). Train from "
+                   "in-memory data with train()")
+
 
 def _tree_to_device(tree: Any, device: torch.device) -> Any:
     """float32 tensors on ``device`` from a tree of arrays or tensors."""
@@ -361,6 +366,11 @@ class Autoencoder:
         return torch.as_tensor(data, dtype=torch.float32, device=self.device)
 
     # -------------------------------------------------------------- training
+    def train_streaming(self, source: Any, n_steps: Optional[int] = None) -> dict:
+        """Out-of-core training from an HDF5 file or a batch source:
+        slice 4 of the port, not here yet."""
+        raise NotImplementedError(f"train_streaming {STREAMING_LATER}")
+
     def _setup_callbacks(self) -> list:
         cbs: list = [ProgressBar(self.p.n_steps), NaNInterrupt()]
         if not self.read_only:

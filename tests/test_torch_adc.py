@@ -267,17 +267,67 @@ def test_frozen_densifiers_stay_put(tmp_path):
 
 
 def test_entry_points_refuse_what_waits_for_later_slices(tmp_path):
+    """Without a card the default device raises; streaming (slice 4)
+    raises ``NotImplementedError``; sidechain reconstruction and multimer
+    training construct, and combine with sparse CVs or with each other
+    only to raise the JAX package's ``ValueError``."""
+    from encodermap_tpu_torch.ops.backmap import backmap_multimer
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_fast, make_spec
+
     data = _cvs()
     p = emt.ADCParameters(main_path=str(tmp_path), **_kw())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             emt.AngleDihedralCartesianEncoderMap(data, p)
-    for extra in (dict(reconstruct_sidechains=True),
-                  dict(multimer_training="homogeneous_transformation")):
-        with pytest.raises(NotImplementedError, match="later|slice"):
-            emt.AngleDihedralCartesianEncoderMap(
-                data, emt.ADCParameters(main_path=str(tmp_path), **_kw(**extra)),
-                device="cpu")
+    et = emt.AngleDihedralCartesianEncoderMap(data, p, device="cpu", read_only=True)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        et.train_streaming(str(tmp_path / "ens.h5"))
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        emt.AngleDihedralCartesianEncoderMap.from_ensemble_h5(str(tmp_path / "ens.h5"), p)
+
+    # sidechain reconstruction: seven CVs of a 5-residue chain
+    info = {1: 1, 2: 0, 3: 2, 4: 0, 5: 1}
+    spec = make_spec(info)
+    rng = np.random.default_rng(3)
+    x = [torch.tensor(rng.uniform(lo, hi, (N_FRAMES, n)), dtype=torch.float32)
+         for lo, hi, n in ((0.13, 0.155, 14), (1.7, 2.2, 13), (-np.pi, np.pi, 12),
+                           (0.13, 0.16, spec.n_sidechain_atoms),
+                           (1.7, 2.2, spec.n_sidechain_atoms), (-np.pi, np.pi, 4))]
+    side = {"central_distances": x[0], "central_angles": x[1], "central_dihedrals": x[2],
+            "side_distances": x[3], "side_angles": x[4], "side_dihedrals": x[5],
+            "all_cartesians": backmap_sidechains_fast(spec, *x)}
+    side = {k: v.numpy() for k, v in side.items()}
+    rec = dict(reconstruct_sidechains=True, sidechain_info=info, use_backbone_angles=True)
+    et = emt.AngleDihedralCartesianEncoderMap(
+        side, emt.ADCParameters(main_path=str(tmp_path), **_kw(**rec)), device="cpu",
+        read_only=True)
+    assert et.sidechain_spec.n_atoms == 15 + spec.n_sidechain_atoms
+    # multimer: a dimer of 2 and 3 residues
+    dimer = {k: v.copy() for k, v in data.items()}
+    dimer["central_cartesians"] = backmap_multimer(
+        [2, 3], *(torch.tensor(dimer[k][:, :n]) for k, n in (
+            ("central_distances", 13), ("central_angles", 11), ("central_dihedrals", 9))),
+        torch.eye(4).expand(N_FRAMES, 1, 4, 4)).numpy()
+    for k, n in (("central_distances", 13), ("central_angles", 11), ("central_dihedrals", 9)):
+        dimer[k] = dimer[k][:, :n]
+    multi = dict(multimer_training="homogeneous_transformation", multimer_lengths=[2, 3],
+                 use_backbone_angles=True, use_sidechains=True)
+    et = emt.AngleDihedralCartesianEncoderMap(
+        dimer, emt.ADCParameters(main_path=str(tmp_path), **_kw(**multi)), device="cpu",
+        read_only=True)
+    assert et.state.params["decoder"][-1]["kernel"].shape[1] == 2 * (11 + 9 + 10) + 16
+
+    sparse_side = dict(side, side_angles=side["side_angles"].copy())
+    sparse_side["side_angles"][0, 0] = np.nan
+    for cvs, kw in ((sparse_side, rec), (dimer, dict(multi, **rec))):
+        errors = []
+        for package, extra in ((emj, {}), (emt, dict(device="cpu"))):
+            with pytest.raises(ValueError) as err:
+                package.AngleDihedralCartesianEncoderMap(
+                    cvs, package.ADCParameters(main_path=str(tmp_path), **_kw(**kw)),
+                    read_only=True, **extra)
+            errors.append(str(err.value))
+        assert errors[0] == errors[1]
 
     class Ensemble:  # any object with .CVs works
         CVs = data

@@ -22,7 +22,10 @@ gives them, the backmapping's ``_one_way`` on the card against the CPU
 CPU's general path (losses 1e-5 relative and gradients 1e-3 in relative
 norm at the same weights; after Adam's first step, which turns a
 gradient of rounding noise into a full step of either sign, losses 1e-4
-and all but 1 % of the weights 1e-4)."""
+and all but 1 % of the weights 1e-4). The same holds for the sidechain-
+reconstruction and the multimer modes at trp-cage scale. The fast
+sidechain backmap (trp-cage, 114 atoms) on the card stays within 3x the
+CPU's own float32 distance from float64, forward and backward."""
 
 import math
 
@@ -318,6 +321,61 @@ def test_one_way_on_card_matches_cpu(cuda):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
+def test_sidechain_backmap_on_card_matches_cpu(cuda):
+    """``backmap_sidechains_fast`` at trp-cage (20 residues, 17 branches,
+    114 atoms), B=256: positions and the gradients of a random projection
+    with respect to all six inputs, float32 on the card and on the CPU,
+    against float64 on the CPU. The card is held to 3x the CPU's own
+    distance from float64 (plus 1e-6 of the largest entry): the planar
+    headings are cumsums of up to 58 bond-angle supplements (~70 rad), where
+    one float32 ulp is 7.6e-6 rad, and the card sums them in another order,
+    so the two devices part by ~1e-5 of the largest coordinate (3.2e-5 nm
+    at 2.9 nm, measured on the card), as the CPU's float32 parts from
+    float64 (up to 1.7e-5 of the largest entry, positions and gradients)."""
+    from chip_smoke import TRP_CAGE_SIDECHAIN_INFO
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_fast, make_spec
+
+    spec = make_spec(TRP_CAGE_SIDECHAIN_INFO)
+    rng = np.random.default_rng(0)
+    B, ns = 256, spec.n_sidechain_atoms
+    x = [rng.uniform(lo, hi, (B, n)) for lo, hi, n in (
+        (0.13, 0.155, 59), (1.7, 2.2, 58), (-np.pi, np.pi, 57), (0.13, 0.16, ns),
+        (1.7, 2.2, ns), (-np.pi, np.pi, 37))]
+    g = rng.normal(size=(B, spec.n_atoms, 3))
+    outs = {}
+    for dev, dtype in (("cpu", torch.float64), ("cpu", torch.float32), (cuda, torch.float32)):
+        xs = [torch.tensor(v, device=dev, dtype=dtype, requires_grad=True) for v in x]
+        y = backmap_sidechains_fast(spec, *xs)
+        (y * torch.tensor(g, device=dev, dtype=dtype)).sum().backward()
+        outs[str(dev), dtype] = [t.detach().cpu().double() for t in [y] + [v.grad for v in xs]]
+    ref, cpu, gpu = (outs[k] for k in (("cpu", torch.float64), ("cpu", torch.float32),
+                                       ("cuda", torch.float32)))
+    for a, b, r in zip(gpu, cpu, ref):
+        scale = float(r.abs().max())
+        assert float((a - r).abs().max()) <= 3 * float((b - r).abs().max()) + 1e-6 * scale
+
+
+def test_reconstruct_steps_on_card_match_cpu(cuda, tmp_path):
+    """Two sidechain-reconstruction steps at trp-cage scale (every atom
+    backmapped; kernels 2-3 at D=206 periodic and D=666), card against
+    CPU, held as ``test_adc_steps_on_card_match_cpu`` holds its steps."""
+    from chip_smoke import TRP_CAGE_SIDECHAIN_INFO, sidechain_cvs
+
+    _card_against_cpu(cuda, tmp_path, sidechain_cvs(1024, device="cpu"),
+                      reconstruct_sidechains=True, sidechain_info=TRP_CAGE_SIDECHAIN_INFO)
+
+
+def test_multimer_steps_on_card_match_cpu(cuda, tmp_path):
+    """Two multimer steps on a trp-cage homodimer (kernels 2-3 at D=304
+    periodic and D=780), card against CPU, held as
+    ``test_adc_steps_on_card_match_cpu`` holds its steps."""
+    from chip_smoke import dimer_cvs
+
+    _card_against_cpu(cuda, tmp_path, dimer_cvs(1024, device="cpu"),
+                      multimer_training="homogeneous_transformation",
+                      multimer_lengths=[20, 20])
+
+
 def test_adc_steps_on_card_match_cpu(cuda, tmp_path):
     """Two ADC steps at trp-cage scale ([128,128,2], B=256, 20 residues, CA
     costs, angles and sidechains, the encoder input's sketch-map cost on)
@@ -336,12 +394,15 @@ def test_adc_steps_on_card_match_cpu(cuda, tmp_path):
     step's losses agree to 1e-4 relative (or 1e-6 of the total loss, for a
     term far below it), and the weights after two steps to 1e-4 in all but
     1 % of their entries."""
+    _card_against_cpu(cuda, tmp_path, _adc_cvs(20, 1024))
+
+
+def _card_against_cpu(cuda, tmp_path, data, **extra):
     import encodermap_tpu_torch as em
     from encodermap_tpu_torch.convert import params_to_numpy
     from encodermap_tpu_torch.ops import _build
     from encodermap_tpu_torch.train.core import tree_unflatten
 
-    data = _adc_cvs(20, 1024)
     idx = np.random.default_rng(1).integers(0, 1024, (2, 256))
     runs = {}
     for dev in ("cpu", cuda):
@@ -349,7 +410,7 @@ def test_adc_steps_on_card_match_cpu(cuda, tmp_path):
                              batch_size=256, n_steps=2, steps_per_scan=2, seed=0,
                              cartesian_pwd_start=1, cartesian_pwd_step=3,
                              use_backbone_angles=True, use_sidechains=True,
-                             angle_cost_scale=1.0, distance_cost_scale=1.0)
+                             angle_cost_scale=1.0, distance_cost_scale=1.0, **extra)
         emap = em.AngleDihedralCartesianEncoderMap(data, p, device=dev)
         leaves = [t.detach().requires_grad_(True) for t in _leaves(emap.state.params)]
         batch = tuple(torch.as_tensor(d[idx[0]], device=dev) for d in emap.train_data)
