@@ -16,8 +16,12 @@ rows, 24,964 wide, on the sigmoid-loss kernels) and at 512 residues (the
 analytic Cartesian route), then in its two further modes at trp-cage
 scale: sidechain reconstruction (every atom of trp-cage backmapped inside
 the step) and multimer training (a trp-cage homodimer placed by decoded
-transforms). It holds the sigmoid-loss kernels against their plain
-versions at each ADC width, and checks what comes out. Prints one JSON
+transforms). Its last leg is BASELINE config 4: a synthetic M1-linked
+diubiquitin written as PDB + XTC, loaded and featurized on the card (held
+against the CPU), the ADC trained on the trajectory ensemble itself, and
+conformations generated onto the topology by the rotation sweep. It holds
+the sigmoid-loss kernels against their plain versions at each ADC width,
+and checks what comes out. Prints one JSON
 line per kernel set before the last line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is non-zero and no result line is printed.
@@ -261,13 +265,21 @@ SIGMOID_SHAPES = ((3, float("inf")), (4, 2 * math.pi), (30, 2 * math.pi),
 
 
 def hold_sigmoid(fs, h, l, params: tuple, periodicity: float, label: str,
-                 reps: int = 5, plain_reps: int = 3, plain_warmup: int = 1) -> dict:
+                 reps: int = 5, plain_reps: int = 3, plain_warmup: int = 1,
+                 oracle: bool = False) -> dict:
     """Kernels 2 and 3 against their plain versions on ``(h, l)``: the loss
     to 1e-5 relative and the latent gradient to 1e-4 of its largest entry
     (f32 sums of B(B+1)/2 pair terms, and of B terms per gradient row, in
     another order than torch's), and the same bits on two launches. Times
     both by CUDA events; returns (abs err, ms, plain ms, bound) per
-    direction."""
+    direction.
+
+    ``oracle=True`` holds the gradient to the plain version in float64
+    instead, by the port's rule for kernel gradients (ROADMAP.md, port
+    rules): err(kernel, f64) <= 3 err(plain f32, f64), each relative to the
+    largest entry of the f64 gradient. It is for inputs whose gradient rows
+    sum terms that cancel, where the plain float32 gradient itself strays
+    from float64 by more than 1e-4 of its largest entry (config 4's)."""
     (B, D), d = h.shape, l.shape[1]
     periodic = math.isfinite(periodicity)
     v_k = fs.sigmoid_loss_fwd(h, l, params, periodicity)
@@ -281,6 +293,12 @@ def hold_sigmoid(fs, h, l, params: tuple, periodicity: float, label: str,
     f_rel = f_abs / abs(float(v_p))
     b_abs = float((g_k - g_p).abs().max())
     b_rel = b_abs / float(g_p.abs().max())
+    if oracle:
+        g_64 = fs.sigmoid_loss_bwd_plain(h.double(), l.double(), params, periodicity)
+        scale = float(g_64.abs().max())
+        b_abs = float((g_k.double() - g_64).abs().max())
+        b_rel = b_abs / scale
+        p_rel = float((g_p.double() - g_64).abs().max()) / scale
     ms_f = time_ms(lambda: fs.sigmoid_loss_fwd(h, l, params, periodicity), reps)
     ms_fp = time_ms(lambda: fs.sigmoid_loss_fwd_plain(h, l, params, periodicity),
                     plain_reps, plain_warmup)
@@ -292,11 +310,15 @@ def hold_sigmoid(fs, h, l, params: tuple, periodicity: float, label: str,
     log(f"[{label}] fwd kernel {float(v_k):.8f} plain {float(v_p):.8f} "
         f"abs {f_abs:.3e} rel {f_rel:.3e} | {ms_f:.4f} ms (plain {ms_fp:.3f} ms, "
         f"bound {bf[0]:.5f} ms {bf[2]})")
-    log(f"[{label}] bwd max abs {b_abs:.3e} rel-to-max {b_rel:.3e} | "
-        f"{ms_b:.4f} ms (plain {ms_bp:.3f} ms, bound {bb[0]:.5f} ms {bb[2]}); "
+    log(f"[{label}] bwd max abs {b_abs:.3e} rel-to-max {b_rel:.3e}"
+        + (f" against float64 (plain float32 {p_rel:.3e})" if oracle else "")
+        + f" | {ms_b:.4f} ms (plain {ms_bp:.3f} ms, bound {bb[0]:.5f} ms {bb[2]}); "
         f"two launches bit-identical {same}")
     check(f_rel <= 1e-5, f"{label} fwd: rel err {f_rel}")
-    check(b_rel <= 1e-4, f"{label} bwd: rel err {b_rel}")
+    if oracle:
+        check(b_rel <= 3 * p_rel, f"{label} bwd: {b_rel} from float64, plain {p_rel}")
+    else:
+        check(b_rel <= 1e-4, f"{label} bwd: rel err {b_rel}")
     check(same, f"{label}: two launches differ")
     return dict(fwd=(f_abs, ms_f, ms_fp, bf), bwd=(b_abs, ms_b, ms_bp, bb))
 
@@ -681,6 +703,123 @@ TRP_CAGE_SIDECHAIN_INFO = {1: 2, 2: 2, 3: 2, 4: 2, 5: 3, 6: 2, 7: 2, 8: 4, 9: 2,
                            18: 2, 19: 2, 20: 1}
 
 
+#: one-letter to three-letter amino-acid codes
+THREE_LETTER = dict(zip("ACDEFGHIKLMNPQRSTVWY", (
+    "ALA CYS ASP GLU PHE GLY HIS ILE LYS LEU MET ASN PRO GLN ARG SER THR VAL TRP "
+    "TYR").split()))
+#: ubiquitin (PDB 1UBQ); M1-linked diubiquitin is this sequence twice
+UBIQUITIN = "MQIFVKTLTGKTITLEVEPSDTIENVKAKIQDKEGIPPDQQRLIFAGKQLEDGRTLSDYNIQKESTLHLVLRLRGG"
+#: a 20-residue peptide holding every standard amino acid once
+ALL_AMINO_ACIDS = "ACDEFGHIKLMNPQRSTVWY"
+
+
+def side_atom_names(resname: str) -> list:
+    """The side-chain atoms that ``CHI_ATOMS`` names for a residue, in chi
+    order: the third atom of chi1 (CB), then the last atom of each chi."""
+    from encodermap_tpu_torch.data.topology import CHI_ATOMS
+
+    quads = [CHI_ATOMS[f"chi{n}"][resname] for n in range(1, 6)
+             if resname in CHI_ATOMS[f"chi{n}"]]
+    return [quads[0][2]] + [q[3] for q in quads] if quads else []
+
+
+def _place(a, b, c, length, angle, torsion):
+    """The atom d with |cd| = ``length``, angle b-c-d = ``angle`` and
+    dihedral a-b-c-d = ``torsion``, from three placed atoms (the natural
+    extension reference frame); every argument batched alike."""
+    bc = c - b
+    bc = bc / torch.linalg.norm(bc, dim=-1, keepdim=True)
+    n = torch.linalg.cross(b - a, bc, dim=-1)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    m = torch.linalg.cross(n, bc, dim=-1)
+    return c + length[..., None] * (-torch.cos(angle)[..., None] * bc
+                                    + (torch.sin(angle) * torch.cos(torsion))[..., None] * m
+                                    + (torch.sin(angle) * torch.sin(torsion))[..., None] * n)
+
+
+def synthetic_protein(sequence: str, n_frames: int, seed: int = 0,
+                      device: str = "cpu") -> tuple:
+    """A protein made from a one-letter ``sequence`` and a ``seed``: its
+    ``Topology`` and ``(n_frames, n_atoms, 3)`` float32 coordinates in nm.
+
+    Each residue has N, CA, C, O and the side-chain atoms that ``CHI_ATOMS``
+    names for it, in chi order (no hydrogens; ALA and GLY have no side
+    atoms). The internal coordinates are drawn from ``seed`` around one
+    conformation (backbone bonds and angles of an ideal peptide, phi/psi of
+    an alpha helix or a beta strand per residue, side chains near trans)
+    with Gaussian noise per frame of thermal size, as an MD trajectory near
+    one state at 300 K has it: 0.03 A on bonds and 0.07 rad on angles
+    (sqrt(kT / 2k) at AMBER-like force constants), 0.3 rad on dihedrals
+    and 0.25 rad on side-chain dihedrals. Float64 on ``device``, in Angstrom: the port's
+    ``backmap_sidechains_fast`` places N, CA and C and ``guess_amide_O`` the
+    carbonyl O. The side chains are placed atom by atom from their three
+    predecessors, CB tetrahedrally (C-N-CA-CB -122.5 deg) and each further
+    atom at its chi: the fast sidechain backmap puts CB in the backbone
+    plane, within 0.1 A of C. Bonds come out near 0.15 nm, so
+    ``guess_bonds`` finds the chain and nothing else."""
+    from encodermap_tpu_torch.data.topology import Topology
+    from encodermap_tpu_torch.ops.backmap import guess_amide_O
+    from encodermap_tpu_torch.ops.backmap_sidechains import (backmap_sidechains_fast,
+                                                             make_spec)
+
+    names = [THREE_LETTER[c] for c in sequence]
+    sides = [side_atom_names(r) for r in names]
+    n_res, F = len(names), n_frames
+    nb = 3 * n_res
+    rng = np.random.default_rng(seed)
+    # one conformation: N-CA, CA-C, C-N bonds (A); angles at CA, C, N
+    bond = np.tile([1.458, 1.525, 1.329], n_res)[:nb - 1]
+    angle = np.tile(np.radians([111.2, 116.2, 121.7]), n_res)[:nb - 2]
+    helix = rng.random(n_res) < 0.5
+    phi = np.where(helix, -57.0, -120.0) + rng.normal(0, 8, n_res)
+    psi = np.where(helix, -47.0, 130.0) + rng.normal(0, 8, n_res)
+    omega = 180.0 + rng.normal(0, 3, n_res)
+    # central dihedral k turns about bond k+1: psi_i, omega_i, phi_(i+1)
+    dih = np.radians(np.stack([psi, omega, np.roll(phi, -1)], 1).reshape(-1)[:nb - 3])
+    depth = max(len(x) for x in sides)
+    chi = np.radians(180.0 + rng.normal(0, 15, (n_res, depth)))
+
+    def noisy(x, sigma):
+        return torch.tensor(x[None] + rng.normal(0, sigma, (F,) + x.shape), device=device)
+
+    zero = torch.zeros((F, 0), dtype=torch.float64, device=device)
+    spec = make_spec({i + 1: 0 for i in range(n_res)})
+    with torch.no_grad():
+        bb = backmap_sidechains_fast(spec, noisy(bond, 0.03), noisy(angle, 0.07),
+                                     noisy(dih, 0.3), zero, zero, zero)
+        o = guess_amide_O(bb, np.arange(2, nb, 3))
+        # side chains, one branch depth at a time over every residue that
+        # reaches it: chain[k] = N, CA, CB, CG, ... of each residue
+        n_at, ca_at, c_at = (bb[:, k::3] for k in range(3))
+        chain = [n_at, ca_at]
+        lengths = noisy(np.full((n_res, depth), 1.53), 0.03)
+        angles = noisy(np.full((n_res, depth), np.radians(111.5)), 0.07)
+        tors = noisy(chi, 0.25)
+        tors[:, :, 0] = torch.tensor(np.radians(-122.5), device=device)
+        side_pos = []
+        for k in range(depth):
+            a, b = (c_at, n_at) if k == 0 else (chain[k - 1], chain[k])
+            chain.append(_place(a, b, chain[k + 1], lengths[:, :, k], angles[:, :, k],
+                                tors[:, :, k]))
+            side_pos.append(chain[-1])
+    bb, o = bb.cpu().numpy(), o.cpu().numpy()
+    side_pos = [x.cpu().numpy() for x in side_pos]
+
+    top = Topology()
+    cols = []
+    for i, (res, side) in enumerate(zip(names, sides)):
+        r = top.add_residue(res, i + 1, 0)
+        for j, nm in enumerate(("N", "CA", "C")):
+            top.add_atom(nm, nm[0], r)
+            cols.append(bb[:, 3 * i + j])
+        top.add_atom("O", "O", r)
+        cols.append(o[:, i])
+        for k, nm in enumerate(side):
+            top.add_atom(nm, nm[0], r)
+            cols.append(side_pos[k][:, i])
+    return top, (np.stack(cols, axis=1) / 10.0).astype(np.float32)
+
+
 def adc_cvs(n_res: int, n_frames: int, seed: int = 0) -> dict:
     """Synthetic ADC CVs as bench.py builds them: random bond angles,
     dihedrals, bond lengths and side dihedrals from ``seed`` with numpy,
@@ -736,16 +875,17 @@ def adc_kernel_inputs(emap, cvs: dict, rows: np.ndarray) -> dict:
             (pairs.shape[1], float("inf")): (pairs, latent, params)}
 
 
-def adc_kernel_check(fs, inputs: dict, tag: str, reps: int = 5) -> dict:
+def adc_kernel_check(fs, inputs: dict, tag: str, reps: int = 5,
+                     oracle: bool = False) -> dict:
     """Kernels 2 and 3 against their plain versions at the ADC shapes; the
     plain versions once each (the plain forward at D = 158^2 is ~75k
-    launches)."""
+    launches); ``oracle`` as ``hold_sigmoid`` takes it."""
     out = {}
     for (D, periodicity), (h, l, params) in inputs.items():
         periodic = math.isfinite(periodicity)
         label = f"{tag} sigmoid B={h.shape[0]} D={D} {'periodic' if periodic else 'euclid'}"
         out[D, periodic] = hold_sigmoid(fs, h, l, params, periodicity, label, reps=reps,
-                                        plain_reps=1, plain_warmup=0)
+                                        plain_reps=1, plain_warmup=0, oracle=oracle)
     return out
 
 
@@ -1142,6 +1282,188 @@ def phase_adc_multimer(em, fs, _build, run_dir: Path) -> dict:
     return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
 
 
+#: M1-linked diubiquitin (BASELINE config 4): 152 residues, 1,066 atoms,
+#: 322 side dihedrals in ``synthetic_protein``'s form
+DIUBI = UBIQUITIN * 2
+#: tolerances of the card's CVs against the CPU's: nm for distances and
+#: Cartesians, rad for angles and (modulo 2 pi) dihedrals
+CV_TOL = {"central_distances": 1e-6, "central_cartesians": 1e-6,
+          "central_angles": 1e-5, "central_dihedrals": 1e-5, "side_dihedrals": 1e-5}
+
+
+def cv_errors(a: dict, b: dict) -> dict:
+    """Largest difference of each CV of ``a`` from ``b``; dihedrals
+    compared modulo 2 pi, NaNs (alignment padding) where both have them."""
+    out = {}
+    for k in CV_TOL:
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        check(x.shape == y.shape and np.array_equal(np.isnan(x), np.isnan(y)),
+              f"CV {k}: shapes {x.shape} {y.shape} or NaN patterns differ")
+        d = x - y
+        if "dihedral" in k:
+            d = (d + np.pi) % (2 * np.pi) - np.pi
+        out[k] = float(np.nanmax(np.abs(d))) if d.size else 0.0
+    return out
+
+
+def check_rotated(top, seed: np.ndarray, xyz: np.ndarray, quads: np.ndarray,
+                  targets: np.ndarray, tag: str) -> tuple:
+    """Generated frames ``xyz`` against the seed: every rotatable dihedral
+    at its target (1e-3 rad), every unrotatable one at the seed's value,
+    every bond ``guess_bonds`` finds in the seed at its seed length (1e-4
+    nm); float64 on the host. Returns (dihedral error, bond error)."""
+    from encodermap_tpu_torch.misc.backmapping_offline import guess_bonds, near_and_far_masks
+    from encodermap_tpu_torch.ops import geometry as geom
+
+    bonds = np.asarray(guess_bonds(top, seed))
+    _, rot = near_and_far_masks(top, quads, bonds=[tuple(b) for b in bonds])
+    x64 = torch.tensor(xyz, dtype=torch.float64)
+    got = geom.compute_dihedrals(x64, quads).numpy()
+    want = np.where(rot, targets, geom.compute_dihedrals(
+        torch.tensor(seed[None], dtype=torch.float64), quads).numpy())
+    dih_err = float(np.abs((got - want + np.pi) % (2 * np.pi) - np.pi).max())
+    lens = np.linalg.norm(xyz[:, bonds[:, 0]] - xyz[:, bonds[:, 1]], axis=-1)
+    bond_err = float(np.abs(lens - np.linalg.norm(seed[bonds[:, 0]] - seed[bonds[:, 1]],
+                                                   axis=-1)).max())
+    log(f"[{tag}] {int(rot.sum())} of {len(quads)} dihedrals rotatable: they hit their "
+        f"targets within {dih_err:.2e} rad (the rest keep the seed's); {len(bonds)} bonds "
+        f"within {bond_err:.2e} nm of the seed frame's")
+    check(dih_err <= 1e-3, f"{tag}: generated dihedrals off their targets")
+    check(bond_err <= 1e-4, f"{tag}: generated bond lengths off the seed's")
+    return dih_err, bond_err
+
+
+def phase_featurize(em, fs, _build, run_dir: Path, n_frames: int = 2048) -> dict:
+    """BASELINE config 4 on the card: M1-linked diubiquitin (152 residues,
+    1,066 atoms) in two trajectories of ``n_frames`` frames, written as PDB
+    + XTC. ``em.load`` -> ``load_CVs("all", ensemble=True)`` on the card,
+    held against the CPU's; the ADC trained on the ``TrajEnsemble`` itself
+    ([128,128,2], B=256, 100 steps; kernels 2-3 at D=1,229 periodic and on
+    the 152^2 CA distance-matrix rows, twice a step each); generated
+    conformations rotated onto the topology (``backend="topology"``, 453
+    central dihedrals; ``"mdtraj"``, 775 with the side dihedrals), checked
+    for their dihedrals and bond lengths, written to XTC and read back.
+    Times XTC reading, featurization (host clock ending in a sync, and the
+    device alone on resident coordinates, with the device's idle share over
+    the blocks), training and generation."""
+    from encodermap_tpu_torch.data.pdb import write_pdb
+    from encodermap_tpu_torch.data.xtc import XTCReader, write_xtc
+    from encodermap_tpu_torch.loading.features import SideChainDihedrals
+    from encodermap_tpu_torch.loading.featurizer import SingleTrajFeaturizer
+
+    tag = "featurize"
+    smi = smi_line()  # beside every throughput this leg prints
+    run_dir.mkdir(parents=True, exist_ok=True)
+    top, xyz = synthetic_protein(DIUBI, 2 * n_frames, seed=5, device="cuda")
+    info = top.sidechain_info()
+    check(len(info) == 152 and sum(info.values()) == 322,
+          f"{tag}: diUbi has {len(info)} residues, {sum(info.values())} side dihedrals")
+    pdb = str(run_dir / "diubi.pdb")
+    write_pdb(pdb, top, xyz[:1])
+    xtcs = [str(run_dir / f"diubi_{i}.xtc") for i in range(2)]
+    for i, path in enumerate(xtcs):
+        write_xtc(path, xyz[i * n_frames:(i + 1) * n_frames])
+    t0 = time.perf_counter()
+    back = XTCReader(xtcs[0]).read()[0]
+    t_read = time.perf_counter() - t0
+    q_err = float(np.abs(back - xyz[:n_frames]).max())
+    log(f"[{tag}] diUbi: {top.n_atoms} atoms, {sum(info.values())} side dihedrals; XTC read "
+        f"{n_frames / t_read:.0f} frames/s ({t_read * 1e3:.1f} ms for {n_frames} frames; "
+        f"{smi}); quantized within {q_err:.2e} nm")
+    check(q_err <= 5.01e-4, f"{tag}: XTC coordinates off by {q_err}")
+
+    trajs = em.load(xtcs, pdb)
+    trajs.load_trajs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trajs.load_CVs("all", ensemble=True)
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    cpu = em.load(xtcs, pdb)
+    cpu.load_trajs()
+    t0 = time.perf_counter()
+    cpu.load_CVs("all", ensemble=True, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    errs = cv_errors(trajs.CVs, cpu.CVs)
+    log(f"[{tag}] load_CVs('all', ensemble=True) on the card {2 * n_frames / t_feat:.0f} "
+        f"frames/s (host clock, ending in a sync; {t_feat * 1e3:.1f} ms; {smi}), on the CPU "
+        f"{2 * n_frames / t_cpu:.0f} frames/s; card against CPU: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(all(v <= CV_TOL[k] for k, v in errs.items()), f"{tag}: card CVs off the CPU's")
+
+    feat = SingleTrajFeaturizer(trajs[0], device="cuda")
+    feat.add_list_of_feats("all")
+    run, slice_xyz = feat._get_runner()
+    resident = torch.tensor(slice_xyz(np.asarray(trajs[0].xyz, np.float32)), device="cuda")
+    ms_dev = time_ms(lambda: run(resident, None, False), 10)
+    def one():
+        feat.get_output_for(trajs[0])
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    ms_host = (time.perf_counter() - t0) * 1e3
+    log(f"[{tag}] one trajectory's blocks ({n_frames} frames): device alone on resident "
+        f"coordinates {ms_dev:.3f} ms ({n_frames / ms_dev * 1e3:.0f} frames/s, CUDA events); "
+        f"with upload and download {ms_host:.3f} ms (host clock; {smi})")
+    busy = device_split(one, ms_host, 1, f"{tag} blocks")
+    log(f"[{tag}] device idle share over the blocks "
+        + (f"{1 - busy / ms_host:.3f}" if busy else "not measured") + f" (torch.profiler; {smi})")
+
+    p = adc_params(em, run_dir / "adc", 100, 100)
+    emap, hist, counts, wall = adc_train(em, _build, trajs, p, f"{tag} adc", 2)
+    first, last = hist["loss"][:10].mean(), hist["loss"][-10:].mean()
+    log(f"[{tag} adc] mean loss of the first 10 steps {first:.4f}, of the last 10 {last:.4f}")
+    check(last < first, f"{tag}: the ADC loss did not fall")
+    cvs = trajs.CVs
+    rows = np.random.default_rng(1).integers(0, 2 * n_frames, 256)
+    inputs = adc_kernel_inputs(emap, cvs, rows)
+    check(set(inputs) == {(1229, 2 * math.pi), (152 ** 2, float("inf"))},
+          f"{tag}: kernel widths {sorted(inputs)}")
+    # every pair of diUbi frames sits near one high-D distance (11.2 +- 0.6
+    # at D=1,229), so the sigmoid terms of a gradient row nearly cancel and
+    # the plain float32 gradient strays ~3e-4 from float64: held to float64
+    kern = adc_kernel_check(fs, inputs, f"{tag} adc", oracle=True)
+    ms, _ = time_chunks(emap, f"{tag} adc")
+    log(f"[{tag} adc] train() {p.n_steps * p.batch_size / wall:.0f} samples/s (host clock), "
+        f"{ms:.3f} ms/step (CUDA events; {smi})")
+
+    latent = emap.encode()
+    seed = np.asarray(trajs[0].xyz[0], np.float64)
+    chain = top.central_atom_indices()
+    quads = np.stack([chain[:-3], chain[1:-2], chain[2:-1], chain[3:]], axis=1)
+    out = {}
+    for backend in ("topology", "mdtraj"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = emap.generate(latent[:256], backend=backend, top=trajs[0]
+                            if backend == "topology" else None)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        decoded = emap.decode(latent[:256])
+        q, targets = quads, decoded[1]
+        if backend == "mdtraj":
+            q = np.vstack([quads, SideChainDihedrals(top)._indices])
+            targets = np.concatenate([decoded[1], decoded[2]], axis=1)
+        check(gen.shape == (256, top.n_atoms, 3) and np.isfinite(gen).all(),
+              f"{tag}: generate({backend}) shape {gen.shape}")
+        log(f"[{tag}] generate(backend={backend!r}) {gen.shape}, {len(q)} dihedrals swept: "
+            f"{256 / t_gen:.0f} conformations/s ({t_gen * 1e3:.1f} ms, host clock; {smi})")
+        check_rotated(top, seed, gen.astype(np.float64), q, targets, f"{tag} {backend}")
+        out[backend] = 256 / t_gen
+    path = str(run_dir / "generated.xtc")
+    write_xtc(path, gen)
+    again = em.load(path, pdb)
+    r_err = float(np.abs(np.asarray(again.xyz) - gen).max())
+    log(f"[{tag}] generated frames written to XTC and read back: {again.n_frames} frames "
+        f"within {r_err:.2e} nm")
+    check(again.n_frames == 256 and r_err <= 5.01e-4, f"{tag}: generated XTC round trip")
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -1173,7 +1495,8 @@ def main() -> int:
         for name, phase in (("adc", phase_adc), ("adc158", phase_adc_matrix),
                             ("adc512", phase_adc_analytic),
                             ("adc_sidechains", phase_adc_sidechains),
-                            ("adc_multimer", phase_adc_multimer)):
+                            ("adc_multimer", phase_adc_multimer),
+                            ("featurize", phase_featurize)):
             t0 = time.perf_counter()
             adc_legs.append(phase(em, fs, _build, Path(tmp) / name))
             log(f"[leg] {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")

@@ -10,7 +10,10 @@ is the AngleDihedralCartesianEncoderMap (ADC): internal coordinates,
 backmapping inside the step, the Cartesian costs, on the same sigmoid-loss
 kernels. Slice 3 adds the ADC's sidechain reconstruction
 (``reconstruct_sidechains=True``) and multimer training
-(``multimer_training="homogeneous_transformation"``).
+(``multimer_training="homogeneous_transformation"``). Slice 4 adds the data
+layer: trajectories (``load``, ``SingleTraj``, ``TrajEnsemble``, PDB and
+XTC files), featurization on the card (``Featurizer``, ``load_CVs``) and
+generation onto a topology (``generate(backend="topology")``).
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed::
 
@@ -21,11 +24,17 @@ Entry points run on the CUDA card unless ``device="cpu"`` is passed::
     emap.train()
     latent = emap.encode(data)
 
-    adc = em.AngleDihedralCartesianEncoderMap(cvs, em.ADCParameters())
-    adc.train()                            # cvs: a dict of CV arrays
-    xyz = adc.generate(adc.encode()[:10])
+    trajs = em.load(["a.xtc", "b.xtc"], "top.pdb")
+    trajs.load_CVs("all", ensemble=True)   # features run on the card
+    adc = em.AngleDihedralCartesianEncoderMap(trajs, em.ADCParameters())
+    adc.train()                            # or a dict of CV arrays
+    xyz = adc.generate(adc.encode()[:10], backend="topology", top=trajs[0])
 """
 
+from .data.api import load
+from .data.custom_topology import CustomTopology
+from .data.trajectory import SingleTraj, TrajEnsemble
+from .loading.featurizer import Featurizer
 from .losses import (
     angle_loss,
     auto_loss,
@@ -54,6 +63,11 @@ from .train.callbacks import (
 )
 
 __all__ = [
+    "load",
+    "SingleTraj",
+    "TrajEnsemble",
+    "Featurizer",
+    "CustomTopology",
     "Parameters",
     "ADCParameters",
     "create_n_cube",

@@ -1,0 +1,1059 @@
+# encodermap_tpu_torch/loading/featurizer.py
+"""Featurizers: batch feature computation over trajectories.
+
+Re-designs the reference's featurizer stack
+(``encodermap/loading/featurizer.py:450-2068``):
+
+* ``SingleTrajFeaturizer`` — collect features, execute them over one traj.
+* ``EnsembleFeaturizer`` — per-topology featurization + NaN-padded alignment
+  onto the union of *generic* labels (``format_output``,
+  ``featurizer.py:1984-2068``), driving the sparse/masked training path.
+* ``Featurizer`` — dispatch constructor like the reference's ``__new__``
+  (``featurizer.py:1415-1447``).
+
+Execution model (replaces the dask graph of ``DaskFeaturizer``): frames are
+processed in blocks; each block is uploaded once and every feature runs on
+it under ``torch.no_grad()`` on the featurizer's device (the card unless
+``device="cpu"``), results coming back in feature order. Only the union of
+atoms the features read is uploaded.
+
+Counterpart of ``encodermap_tpu/loading/featurizer.py``: the same adders,
+labels and NaN-padded ensemble alignment; ``jax.jit`` of the block becomes
+eager PyTorch, and the minimum-image choice a plain flag per trajectory.
+The multi-device path (``parallel/sharded_featurize.py``) is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..data.cvstore import CVCollection
+from ..device import resolve_device
+from ..ops import geometry as geom
+from . import features as F
+
+__all__ = ["Featurizer", "SingleTrajFeaturizer", "EnsembleFeaturizer",
+           "pairs"]
+
+#: features loaded by add_list_of_feats("all") — the ADC set, like the
+#: reference's 'all' shortcut
+ALL_FEATS = (
+    "central_angles",
+    "central_dihedrals",
+    "central_cartesians",
+    "central_distances",
+    "side_dihedrals",
+)
+# the reference's "full" set (featurizer.py:506-516) — nine classes; it
+# does NOT include AllBondDistances (only request that one by name)
+FULL_FEATS = ALL_FEATS + (
+    "all_cartesians",
+    "side_cartesians",
+    "side_distances",
+    "side_angles",
+)
+
+
+def pairs(sel, excluded_neighbors: int = 0) -> np.ndarray:
+    """All non-redundant index pairs from ``sel``, excluding pairs whose
+    *values* are within ``excluded_neighbors`` of each other (reference
+    ``featurizer.py:350-386``, vectorized)."""
+    sel = np.asarray(sel, np.int64)
+    a, b = np.triu_indices(len(sel), k=1)
+    lo = np.minimum(sel[a], sel[b])
+    hi = np.maximum(sel[a], sel[b])
+    keep = hi > lo + int(excluded_neighbors)
+    return np.stack([lo[keep], hi[keep]], axis=1)
+
+
+def _parse_pairwise_input(indices, indices2=None) -> np.ndarray:
+    """Pairwise-feature index handling (reference ``featurizer.py:307-347``):
+    an (n, 2) array passes through; a FLAT iterable of ints is sorted,
+    deduplicated and expanded to all intra-group pairs — or, with
+    ``indices2``, to the inter-group product (minus atoms already in the
+    first group)."""
+    arr = np.asarray(indices, np.int64)
+    if arr.ndim != 1:
+        return arr.reshape(-1, 2)
+    idx1 = np.unique(arr)
+    if indices2 is None:
+        a, b = np.triu_indices(len(idx1), k=1)
+        return np.stack([idx1[a], idx1[b]], axis=1)
+    idx2 = np.unique(np.asarray(indices2, np.int64))
+    idx2 = idx2[~np.isin(idx2, idx1)]
+    g1, g2 = np.meshgrid(idx1, idx2, indexing="ij")
+    return np.stack([g1.ravel(), g2.ravel()], axis=1)
+
+
+def _reference_xyz(reference) -> np.ndarray:
+    """Accept an ndarray of coordinates or any traj-like with ``.xyz``
+    (the reference type-checks for md.Trajectory, ``featurizer.py:875``)."""
+    if hasattr(reference, "xyz"):
+        return np.asarray(reference.xyz)
+    return np.asarray(reference)
+
+
+def _attach_cv(traj, name, data, labels, indices, attrs) -> None:
+    """Attach a CV through the trajectory's checked adder when it has one
+    (angle-unit homogeneity, like SingleTraj.load_CV); duck-typed test
+    trajs without it fall back to the raw store."""
+    fn = getattr(traj, "_add_cv_checked", None)
+    if fn is not None:
+        fn(name, data, labels, indices, attrs, override=True)
+    else:
+        traj._CVs.add(name, data, labels, indices, attrs)
+
+
+class _FeatureList(list):
+    """Feature container that refuses duplicates by VALUE: re-adding an
+    equal feature warns and is skipped, like the reference's
+    ``__add_feature`` (``featurizer.py:639-646``). All growth paths
+    (append/extend/insert/+=) funnel through the same guard."""
+
+    def append(self, feature) -> None:
+        import warnings
+
+        if getattr(feature, "dimension", None) == 0:
+            # an empty/ineffective selection yields a 0-column CV; the
+            # reference warn-skips it (featurizer.py:633-638)
+            warnings.warn(
+                f"Given an empty feature (e.g. due to an empty/ineffective "
+                f"selection). Skipping it. Feature desc: "
+                f"{feature.describe()}"
+            )
+            return
+        if any(feature == f for f in self):
+            warnings.warn(
+                f"Tried to re-add the same feature "
+                f"{feature.__class__.__name__}; skipping."
+            )
+            return
+        super().append(feature)
+
+    def extend(self, features) -> None:
+        for f in features:
+            self.append(f)
+
+    def insert(self, index: int, feature) -> None:
+        import warnings
+
+        # same guards as append (the class contract: ALL growth paths
+        # funnel through them) — insert previously admitted 0-dim features
+        if getattr(feature, "dimension", None) == 0:
+            warnings.warn(
+                f"Given an empty feature (e.g. due to an empty/ineffective "
+                f"selection). Skipping it. Feature desc: "
+                f"{feature.describe()}"
+            )
+            return
+        if any(feature == f for f in self):
+            warnings.warn(
+                f"Tried to re-add the same feature "
+                f"{feature.__class__.__name__}; skipping."
+            )
+            return
+        super().insert(index, feature)
+
+    def __iadd__(self, features):
+        self.extend(features)
+        return self
+
+
+class SingleTrajFeaturizer:
+    """Collects Feature objects for one trajectory and executes them."""
+
+    def __init__(self, traj: Any, block_size: int = 4096,
+                 device=None) -> None:
+        self.traj = traj
+        self.block_size = block_size
+        #: where the features run; resolved when they run, so adding
+        #: features needs no card
+        self.device = device
+        self.features: list[F.Feature] = _FeatureList()
+        self._custom_feature_ids: list[int] = []
+        self._n_custom_features = 0
+        # (feature-identity key, run, slice_xyz): the block runner with its
+        # remapped tables, memoized so repeated get_output calls — and
+        # same-topology ensemble members routed through get_output_for —
+        # never rebuild it
+        self._runner: Optional[tuple] = None
+
+    # ------------------------------------------------------------------ adders
+    def add_list_of_feats(
+        self, which: Union[str, Sequence[str]] = "all",
+        ensemble: bool = False, periodic: bool = True, deg: bool = False,
+        omega: bool = True, check_aas: bool = True,
+    ) -> None:
+        """Add the named ADC feature set (reference
+        ``featurizer.py:458-598``): ``deg`` returns angular features in
+        degrees, ``omega`` includes/excludes backbone omega dihedrals, and
+        ``check_aas`` raises on residues the chi/backbone tables don't
+        know (instead of silently skipping them)."""
+        if check_aas:
+            unknown = sorted(
+                {r.name for r in self.traj.top.residues if not r.is_protein}
+            )
+            if unknown:
+                raise ValueError(
+                    f"I don't recognize these residues: {unknown}. Either "
+                    f"add them via traj.load_custom_topology(...), remove "
+                    f"them from the trajectory, or pass check_aas=False to "
+                    f"knowingly skip them (the reference raises here too, "
+                    f"features.py:308-320)."
+                )
+        if which == "all":
+            which = ALL_FEATS
+        elif which == "full":
+            which = FULL_FEATS
+        elif isinstance(which, str):
+            # a single feature name wraps into a list like the reference
+            # (featurizer.py:529) — otherwise the loop iterates characters
+            which = [which]
+        # the reference also accepts CamelCase class names
+        # (UNDERSCORE_MAPPING values, featurizer.py:501)
+        camel_to_key = {cls.__name__: key
+                        for key, cls in F.ADC_FEATURES.items()}
+        for name in which:
+            name = camel_to_key.get(name, name)
+            cls = F.ADC_FEATURES.get(name)
+            if cls is None:
+                raise ValueError(
+                    f"unknown feature shortcut {name!r}; known: "
+                    f"{sorted(F.ADC_FEATURES)}"
+                )
+            kwargs = {"generic_labels": ensemble, "periodic": periodic}
+            if issubclass(cls, (F.AngleFeature, F.DihedralFeature)):
+                kwargs["deg"] = deg
+            if cls is F.CentralDihedrals:
+                kwargs["omega"] = omega
+            self.features.append(cls(self.traj.top, **kwargs))
+
+    def add_custom_feature(self, feature: F.Feature) -> None:
+        """Add a user-defined feature. Bare ``CustomFeature`` instances get
+        a per-featurizer running id and the name ``CustomFeature_{id}``;
+        subclasses with their own ``name`` keep it (reference
+        ``featurizer.py:1581-1612``)."""
+        user_named = (
+            type(feature).__name__ == "CustomFeature"
+            and "name" in feature.__dict__
+            and not str(feature.__dict__["name"]).startswith("CustomFeature_")
+        )
+        if type(feature).__name__ == "CustomFeature" and user_named:
+            # the user explicitly named this feature (f.name = 'my_cv'):
+            # keep it, like the reference's hasattr(feature, 'name') guard
+            # (featurizer.py:1586) — no id bookkeeping either
+            pass
+        elif type(feature).__name__ == "CustomFeature":
+            if getattr(feature, "id", None) is None:
+                feature.id = self._n_custom_features
+            elif (feature.id in self._custom_feature_ids
+                  and feature not in self.features):
+                # a DIFFERENT feature reusing an id is an error; re-adding
+                # the same one falls through to the warn-and-skip dedup
+                raise ValueError(
+                    f"A CustomFeature with the id {feature.id} already "
+                    f"exists. Please change the id of your CustomFeature."
+                )
+            feature.name = f"CustomFeature_{feature.id}"
+        else:
+            # subclasses KEEP a `name` they defined themselves (class- or
+            # instance-level), like the reference's hasattr guard
+            # (featurizer.py:603) — the CV key must stay the user's name;
+            # only unnamed subclasses get the class name
+            has_own_name = "name" in feature.__dict__ or any(
+                "name" in klass.__dict__
+                for klass in type(feature).__mro__
+                if klass not in (F.Feature, F.CustomFeature, object)
+            )
+            if not has_own_name:
+                try:
+                    feature.name = type(feature).__name__
+                except AttributeError:
+                    pass
+        before = len(self.features)
+        self.features.append(feature)  # warns + skips value-duplicates
+        if (len(self.features) > before
+                and type(feature).__name__ == "CustomFeature"
+                and getattr(feature, "id", None) is not None):
+            # user-named features skip id bookkeeping (id stays None)
+            self._custom_feature_ids.append(feature.id)
+            self._n_custom_features = max(
+                self._n_custom_features, feature.id + 1
+            )
+
+    def add_distances(self, indices, periodic: bool = True,
+                      indices2=None) -> None:
+        """Distances between atom pairs. ``indices`` is an (n, 2) pair array,
+        or a flat iterable of atom indices expanded to all intra-group pairs
+        (inter-group against ``indices2`` when given) — reference
+        ``featurizer.py:677-717``."""
+        atom_pairs = _parse_pairwise_input(indices, indices2)
+        self.features.append(
+            F.DistanceFeature(self.traj.top, atom_pairs, periodic)
+        )
+
+    def add_distances_ca(self, periodic: bool = True,
+                         excluded_neighbors: int = 2) -> None:
+        """All CA-CA distances, excluding residues within
+        ``excluded_neighbors`` of each other in sequence (reference
+        ``featurizer.py:647-676``)."""
+        top = self.traj.top
+        ca = [(a.residue.index, a.index) for a in top.atoms if a.name == "CA"]
+        res_pairs = pairs([r for r, _ in ca], excluded_neighbors)
+        ca_of_res = dict(ca)
+        atom_pairs = np.array(
+            [[ca_of_res[ri], ca_of_res[rj]] for ri, rj in res_pairs],
+            np.int64,
+        ).reshape(-1, 2)
+        self.add_distances(atom_pairs, periodic=periodic)
+
+    def add_inverse_distances(self, indices, periodic: bool = True,
+                              indices2=None) -> None:
+        atom_pairs = _parse_pairwise_input(indices, indices2)
+        self.features.append(
+            F.InverseDistanceFeature(self.traj.top, atom_pairs, periodic)
+        )
+
+    def add_contacts(self, indices, indices2=None, threshold: float = 0.3,
+                     periodic: bool = True,
+                     count_contacts: bool = False) -> None:
+        # reference signature/defaults (featurizer.py:935): indices2 is the
+        # SECOND positional (pairs-from-two-groups form), threshold 0.3 nm
+        atom_pairs = _parse_pairwise_input(indices, indices2)
+        self.features.append(
+            F.ContactFeature(self.traj.top, atom_pairs, threshold, periodic,
+                             count_contacts)
+        )
+
+    def add_angles(self, indexes, deg: bool = False, cossin: bool = False,
+                   periodic: bool = True) -> None:
+        self.features.append(
+            F.AngleFeature(self.traj.top, indexes, deg, cossin, periodic)
+        )
+
+    def add_dihedrals(self, indexes, deg: bool = False, cossin: bool = False,
+                      periodic: bool = True) -> None:
+        self.features.append(
+            F.DihedralFeature(self.traj.top, indexes, deg, cossin, periodic)
+        )
+
+    def add_backbone_torsions(self, selstr=None, deg: bool = False,
+                              cossin: bool = False,
+                              periodic: bool = True) -> None:
+        """All phi/psi torsions, or only those of residues matched by the
+        ``selstr`` atom selection (reference ``featurizer.py:718-783``)."""
+        self.features.append(
+            F.BackboneTorsionFeature(self.traj.top, selstr, deg, cossin,
+                                     periodic)
+        )
+
+    def add_sidechain_torsions(self, selstr=None, deg: bool = False,
+                               cossin: bool = False, periodic: bool = True,
+                               which="all") -> None:
+        """All chi1-5 torsions, or only those of residues matched by the
+        ``selstr`` atom selection (reference ``featurizer.py:1194-1240``)."""
+        self.features.append(
+            F.SideChainTorsions(self.traj.top, selstr, deg, cossin, periodic,
+                                which)
+        )
+
+    def add_selection(self, indexes, reference=None, atom_indices=None,
+                      ref_atom_indices=None) -> None:
+        """Flattened xyz of selected atoms; with ``reference`` (coordinates
+        or a traj-like with ``.xyz``) every frame is superposed onto it
+        first, like the reference's AlignFeature routing
+        (``featurizer.py:848-890``)."""
+        if reference is None:
+            self.features.append(F.SelectionFeature(self.traj.top, indexes))
+        else:
+            self.features.append(
+                F.AlignFeature(
+                    self.traj.top, _reference_xyz(reference), indexes,
+                    atom_indices, ref_atom_indices,
+                )
+            )
+
+    def add_all(self, reference=None, atom_indices=None,
+                ref_atom_indices=None) -> None:
+        """All atom coordinates, flattened [x1, y1, z1, x2, ...]; optionally
+        superposed onto ``reference`` (reference ``featurizer.py:820-846``)."""
+        self.add_selection(
+            np.arange(self.traj.top.n_atoms), reference=reference,
+            atom_indices=atom_indices, ref_atom_indices=ref_atom_indices,
+        )
+
+    def add_residue_mindist(self, residue_pairs="all",
+                            scheme: str = "closest-heavy",
+                            ignore_nonprotein: bool = True,
+                            threshold: Optional[float] = None,
+                            periodic: bool = True,
+                            count_contacts: bool = False) -> None:
+        self.features.append(
+            F.ResidueMinDistanceFeature(
+                self.traj.top, residue_pairs, scheme, threshold, periodic,
+                ignore_nonprotein=ignore_nonprotein,
+                count_contacts=count_contacts,
+            )
+        )
+
+    def add_group_COM(self, group_definitions, ref_geom=None,
+                      image_molecules: bool = False,
+                      mass_weighted: bool = True) -> None:
+        self.features.append(
+            F.GroupCOMFeature(self.traj.top, group_definitions, mass_weighted,
+                              ref_geom=ref_geom,
+                              image_molecules=image_molecules)
+        )
+
+    def add_residue_COM(self, residue_indices, scheme: str = "all",
+                        ref_geom=None, image_molecules: bool = False,
+                        mass_weighted: bool = True) -> None:
+        self.features.append(
+            F.ResidueCOMFeature(self.traj.top, residue_indices, scheme,
+                                mass_weighted, ref_geom=ref_geom,
+                                image_molecules=image_molecules)
+        )
+
+    def add_minrmsd_to_ref(self, ref, ref_frame: int = 0, atom_indices=None,
+                           precentered: bool = False) -> None:
+        """Minimal RMSD to frame ``ref_frame`` of ``ref`` (coordinates or a
+        traj-like with ``.xyz``), reference ``featurizer.py:1241-1279``.
+        ``precentered`` is accepted for signature parity; the Kabsch kernel
+        always centers, so it is only the reference's mdtraj speed hint."""
+        ref_xyz = np.asarray(ref.xyz if hasattr(ref, "xyz") else ref)
+        if ref_xyz.ndim == 3:
+            ref_xyz = ref_xyz[ref_frame]
+        self.features.append(
+            F.MinRmsdFeature(self.traj.top, ref_xyz, atom_indices)
+        )
+
+    def add_align(self, ref_xyz, indexes, atom_indices=None,
+                  ref_atom_indices=None) -> None:
+        self.features.append(
+            F.AlignFeature(self.traj.top, ref_xyz, indexes, atom_indices,
+                           ref_atom_indices)
+        )
+
+    @property
+    def dimension(self) -> int:
+        return sum(f.dimension for f in self.features)
+
+    @property
+    def ndim(self) -> int:
+        """Alias of :attr:`dimension` (reference ``featurizer.py:1280``)."""
+        return self.dimension
+
+    @property
+    def select_Ca(self) -> np.ndarray:
+        """All CA atom indices (reference ``featurizer.py:1288-1290``)."""
+        return self.traj.top.select("name CA")
+
+    def describe(self) -> list[str]:
+        """Concatenated labels of every added feature, in feature order
+        (reference ``featurizer.py:1395-1410``)."""
+        return [lbl for f in self.features for lbl in f.describe()]
+
+    def transform(self, xyz=None, unitcell=None) -> np.ndarray:
+        """All features applied and column-concatenated to one
+        ``(n_frames, dimension)`` array (the reference's ``transform``,
+        ``featurizer.py:1311-1374``). Defaults to this featurizer's own
+        trajectory; pass ``xyz`` (and ``unitcell``) to featurize other
+        coordinates over the same topology. Features with a non-flat
+        output (e.g. cartesians) are flattened to (frames, -1)."""
+        if xyz is None:
+            xyz = np.asarray(self.traj.xyz, np.float32)
+            if unitcell is None:
+                unitcell = self.traj.unitcell_vectors
+        dev = resolve_device(self.device)
+        xb = torch.as_tensor(np.asarray(xyz, np.float32), device=dev)
+        bb = (None if unitcell is None else
+              torch.as_tensor(np.asarray(unitcell, np.float32), device=dev))
+        cols = []
+        with torch.no_grad():
+            for f in self.features:
+                arr = _to_host(f.transform(xb, bb))
+                cols.append(arr.reshape(arr.shape[0], -1))
+        return np.concatenate(cols, axis=1)
+
+    # ------------------------------------------------------------------ execute
+    def get_output(self, ensemble: bool = False) -> CVCollection:
+        """Execute all features over the trajectory in device-sized blocks.
+
+        When every feature reads atoms only through an index table
+        (``Feature.remappable``), only the union of referenced atoms is
+        shipped to the device — for solvated systems this cuts the
+        host->device transfer by the solvent fraction (often 10-100x)."""
+        return self.get_output_for(self.traj, ensemble=ensemble)
+
+    def _get_runner(self):
+        # keyed on the feature objects' identities AND their index-table
+        # contents: adding/removing/replacing a feature invalidates the
+        # cached runner, and so does assigning through the public
+        # `indexes` setter (the runner bakes remapped copies of the
+        # tables in as constants — identity alone would serve stale rows)
+        key = tuple(
+            (id(f), None if getattr(f, "indices", None) is None
+             else hash(np.asarray(f.indices).tobytes()))
+            for f in self.features
+        )
+        if self._runner is None or self._runner[0] != key:
+            run, slice_xyz = make_feature_runner(self.features)
+            # the snapshot keeps the keyed feature objects ALIVE: id() of
+            # a freed feature could be reused by a new one, silently
+            # serving stale tables
+            self._runner = (key, run, slice_xyz, list(self.features))
+        return self._runner[1], self._runner[2]
+
+    def get_output_for(self, traj, ensemble: bool = False) -> CVCollection:
+        """:meth:`get_output` against another trajectory of the SAME
+        topology: reuses this featurizer's features and block runner (one
+        set of tables per topology, not per ensemble member)."""
+        dev = resolve_device(self.device)
+        box = traj.unitcell_vectors
+        triclinic = box is not None and geom.boxes_are_triclinic(box)
+        out = CVCollection()
+
+        feats = self.features
+        run, slice_xyz = self._get_runner()
+        xyz = slice_xyz(np.asarray(traj.xyz, np.float32))
+        blocks: list[list[np.ndarray]] = [[] for _ in feats]
+
+        def flush(res):
+            # the copy to the host syncs; deferring it by one block lets
+            # the next block's upload and features queue behind this one
+            for j, r in enumerate(res):
+                blocks[j].append(_to_host(r))
+
+        pass_host = getattr(run, "accepts_host_blocks", False)
+        pending = None
+        for i in range(0, len(xyz), self.block_size):
+            xyz_np = xyz[i : i + self.block_size]
+            box_np = box[i : i + self.block_size] if box is not None else None
+            xb = _upload(xyz_np, dev)
+            bb = _upload(box_np, dev) if box_np is not None else None
+            if pass_host:
+                res = run(xb, bb, triclinic, xyz_np, box_np)
+            else:
+                res = run(xb, bb, triclinic)
+            if pending is not None:
+                flush(pending)
+            pending = res
+        if pending is not None:
+            flush(pending)
+
+        for f, name, parts in zip(feats, _cv_names(feats), blocks):
+            # zero-frame trajs run no blocks: keep the FEATURE's width so
+            # labels match the data and ensemble alignment can broadcast
+            # (a (0, 0) placeholder crashed _align_2d, wave 31)
+            data = (np.concatenate(parts, axis=0) if parts
+                    else np.zeros((0, f.dimension), np.float32))
+            # labels/indices come from the ORIGINAL features (topology-true
+            # atom indices), only the compute used remapped copies
+            labels = f.generic_describe() if ensemble else f.describe()
+            # angular features carry their unit, like the reference's
+            # per-DataArray attrs (misc/xarray.py:486-800) — TrajEnsemble
+            # refuses to combine deg with rad CVs
+            attrs = None
+            if getattr(f, "deg", None) is not None and not getattr(
+                    f, "cossin", False):
+                attrs = {"angle_units": "deg" if f.deg else "rad"}
+            out.add(name, data, labels, f.indices, attrs)
+        return out
+
+    @staticmethod
+    def _remap_to_union(feats):
+        """(features_for_compute, atom_union_or_None): when every feature is
+        remappable, translate index tables onto the sorted union of
+        referenced atoms so xyz can be sliced before upload."""
+        if not feats or not all(
+            f.remappable and f.indices is not None for f in feats
+        ):
+            return feats, None
+        atom_union = np.unique(
+            np.concatenate([np.asarray(f.indices).ravel() for f in feats])
+        )
+        n_atoms = feats[0].top.n_atoms
+        if len(atom_union) >= n_atoms:
+            return feats, None  # nothing to save
+        mapping = np.full(n_atoms, -1, np.int64)
+        mapping[atom_union] = np.arange(len(atom_union))
+        remapped = [f.remap(mapping) for f in feats]
+        if any(r is None for r in remapped):
+            return feats, None
+        return remapped, atom_union
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One host block to the device, through pinned memory on the card so
+    the copy does not block the host."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _to_host(r) -> np.ndarray:
+    if isinstance(r, torch.Tensor):
+        return r.detach().cpu().numpy()
+    return np.asarray(r)
+
+
+def make_feature_runner(feats):
+    """Shared block runner with atom-union slicing, so the atom-union
+    contract lives in exactly one place.
+
+    Returns ``(run, slice_xyz)``: ``slice_xyz(xyz_np)`` restricts host xyz
+    to the union of feature-referenced atoms (identity when any feature is
+    not remappable); ``run(xyz_block, box_block, triclinic)`` applies every
+    feature to a (sliced) block tensor under ``torch.no_grad()`` and
+    returns their tensors on the block's device, in feature order.
+    ``triclinic`` decides the minimum-image wrap for the whole block:
+    orthorhombic cells skip the 27-image search
+    (``ops/geometry.py::mic_mode``); compute it on the host via
+    ``geom.boxes_are_triclinic(traj.unitcell_vectors)``.
+    """
+    # CustomFeatures wrap arbitrary user Python: they run on HOST, outside
+    # the device block, and their results are spliced back in feature
+    # order (the reference runs user funs eagerly too, features.py:770)
+    host_idx = [i for i, f in enumerate(feats)
+                if getattr(f, "_is_custom", False)]
+    dev_feats = [f for i, f in enumerate(feats) if i not in set(host_idx)]
+    run_feats, atom_union = SingleTrajFeaturizer._remap_to_union(dev_feats)
+    if host_idx and atom_union is not None:
+        # host features see full-topology xyz — never slice under them
+        run_feats, atom_union = dev_feats, None
+
+    def run_block(xyz_block, box_block, triclinic: bool):
+        with torch.no_grad(), geom.mic_mode(triclinic):
+            return [f.transform(xyz_block, box_block) for f in run_feats]
+
+    if host_idx:
+        host_set = set(host_idx)
+
+        def run(xyz_block, box_block, triclinic: bool,
+                xyz_np=None, box_np=None):
+            # callers that still hold the host copy of the block pass it in
+            # (get_output_for does), so a just-uploaded block is not read
+            # straight back off the device
+            dev = run_block(xyz_block, box_block, triclinic) if run_feats \
+                else []
+            if xyz_np is None:
+                xyz_np = _to_host(xyz_block)
+            if box_np is None and box_block is not None:
+                box_np = _to_host(box_block)
+            dev_it = iter(dev)
+            return [
+                feats[i].transform(xyz_np, box_np) if i in host_set
+                else next(dev_it)
+                for i in range(len(feats))
+            ]
+
+        run.accepts_host_blocks = True
+    else:
+        run = run_block  # callers getattr(run, "accepts_host_blocks", False)
+
+    def slice_xyz(xyz_np):
+        return xyz_np if atom_union is None else xyz_np[:, atom_union]
+
+    return run, slice_xyz
+
+
+#: Feature class -> CV name used in trajectory CV stores
+_CV_NAMES = {
+    "CentralAngles": "central_angles",
+    "CentralDihedrals": "central_dihedrals",
+    "CentralCartesians": "central_cartesians",
+    "CentralBondDistances": "central_distances",
+    "SideChainDihedrals": "side_dihedrals",
+    "AllCartesians": "all_cartesians",
+    "AllBondDistances": "all_distances",
+    "SideChainCartesians": "side_cartesians",
+    "SideChainBondDistances": "side_distances",
+    "SideChainAngles": "side_angles",
+}
+
+
+def _cv_name(f: F.Feature) -> str:
+    if getattr(f, "_is_custom", False):
+        # CustomFeature_0 / a subclass's own `name` (reference test
+        # ``test_add_custom_feature`` keys output by it)
+        return str(getattr(f, "name", type(f).__name__))
+    return _CV_NAMES.get(type(f).__name__, type(f).__name__)
+
+
+def _cv_names(feats) -> list[str]:
+    """Deduplicated CV names for a feature list: the first occurrence of a
+    class keeps the bare name (the ADC contract), later ones get _2, _3,
+    ... suffixes so same-class features never clobber each other."""
+    seen: dict[str, int] = {}
+    out = []
+    for f in feats:
+        name = _cv_name(f)
+        k = seen.get(name, 0)
+        seen[name] = k + 1
+        out.append(f"{name}_{k + 1}" if k else name)
+    return out
+
+
+class EnsembleFeaturizer:
+    """Featurize a TrajEnsemble, NaN-pad-aligning across topologies.
+
+    Exposes the full ``add_*`` surface of :class:`SingleTrajFeaturizer`
+    (the reference injects every add method via a metaclass,
+    ``featurizer.py:1450-1493``; here calls are recorded and replayed on a
+    per-topology featurizer, which builds topology-specific index tables
+    naturally).
+
+    Alignment uses the union of *generic* labels per CV over **all** member
+    trajectories, with values from each topology scattered into their
+    label's column and NaN elsewhere (the masked-dense equivalent of the
+    reference's sparse path, ``featurizer.py:1984-2068``). A CV absent from
+    some trajectory (e.g. side_dihedrals of an all-glycine chain) is filled
+    with all-NaN rows for that trajectory."""
+
+    def __init__(self, trajs: Any, block_size: int = 4096,
+                 device=None) -> None:
+        self.trajs = trajs
+        self.block_size = block_size
+        #: where the replayed per-topology featurizers run
+        self.device = device
+        self._calls: list[tuple[str, tuple, dict]] = []
+
+    def add_list_of_feats(self, which="all", **kwargs) -> None:
+        self._calls.append(("add_list_of_feats", (which,), kwargs))
+
+    def __getattr__(self, name: str):
+        # record any SingleTrajFeaturizer add_* call for per-topology replay
+        if name.startswith("add_") and callable(
+            getattr(SingleTrajFeaturizer, name, None)
+        ):
+            def record(*args, **kwargs):
+                self._calls.append((name, args, kwargs))
+
+            record.__name__ = name
+            return record
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}"
+        )
+
+    def n_features(self) -> int:
+        """Number of active features per topology (a METHOD, like the
+        reference's ``featurizer.py:1908``), asserting every topology
+        carries the same count — NOT the number of recorded add_* calls
+        (one ``add_list_of_feats("all")`` call is five features)."""
+        counts = {
+            top: len(feat.features)
+            for top, feat in self._containers().items()
+        }
+        if not counts:
+            return 0
+        lengths = set(counts.values())
+        assert len(lengths) == 1, (
+            f"There are different numbers of features per topology: "
+            f"{ {str(k): v for k, v in counts.items()} }"
+        )
+        return lengths.pop()
+
+    def _keyed_cache(self, ensemble: bool) -> dict:
+        """The persistent (top-identity -> SingleTrajFeaturizer) cache for
+        the current recorded-call state. Shared by :meth:`_containers` AND
+        :meth:`apply` so repeated apply()/get_output() calls reuse the
+        replayed featurizers and their block runners instead of
+        rebuilding them per call; invalidated when add_* calls were
+        recorded since the last build."""
+        key = (len(self._calls), bool(ensemble))
+        if getattr(self, "_feat_cache_key", None) != key:
+            self._feat_cache: dict = {}
+            self._feat_cache_key = key
+        return self._feat_cache
+
+    def _containers(self, ensemble: bool = False) -> dict:
+        """Topology -> replayed :class:`SingleTrajFeaturizer` (the
+        reference's ``feature_containers`` dict, ``featurizer.py:1521``).
+        Rebuilt lazily whenever add_* calls were recorded since the last
+        build (recorded-replay has no incremental container updates)."""
+        cache = self._keyed_cache(ensemble)
+        out: dict = {}
+        for t in self.trajs:
+            feat = self._featurizer_for(t, cache, ensemble)
+            out.setdefault(t.top, feat)
+        return out
+
+    @property
+    def feature_containers(self) -> dict:
+        """Reference-named alias of :meth:`_containers`."""
+        return self._containers()
+
+    @property
+    def features(self) -> list:
+        """Flat list of every feature over all topology containers
+        (reference ``featurizer.py:1803-1808``)."""
+        feats: list = []
+        for c in self._containers().values():
+            feats.extend(c.features)
+        return feats
+
+    def describe(self) -> dict:
+        """Per-topology feature labels: ``{Topology: [labels]}``
+        (reference ``featurizer.py:1543-1556``)."""
+        return {top: c.describe() for top, c in self._containers().items()}
+
+    def transform(self, traj, outer_p=None, inner_p=None,
+                  inner_p_id=None) -> np.ndarray:
+        """Apply this featurizer's features to ONE trajectory of the
+        ensemble (reference ``featurizer.py:1810-1900``; the progress-bar
+        arguments are accepted for signature parity)."""
+        del outer_p, inner_p, inner_p_id
+        # reuse the per-topology container cache (Topology compares by
+        # value): repeated transform() calls must not replay every
+        # recorded add_* (add_residue_mindist('all') is O(n_residues^2))
+        feat = self._containers(ensemble=False).get(traj.top)
+        if feat is None:  # a topology not in the ensemble
+            feat = self._featurizer_for(traj, {}, ensemble=False)
+        return feat.transform(
+            np.asarray(traj.xyz, np.float32), traj.unitcell_vectors
+        )
+
+    def get_output(self, ensemble: bool = False, pbar=None) -> dict:
+        """Run the featurization and return ``{traj_num: CVCollection}``
+        (the reference returns an ``xarray.Dataset``,
+        ``featurizer.py:1924``; the CVCollection is this framework's
+        labeled-array stand-in). Like ``trajs.load_CVs(self)``, the CVs are
+        also attached to the member trajectories."""
+        del pbar
+        self.apply(ensemble=ensemble)
+        return {t.traj_num: t._CVs for t in self.trajs}
+
+    def _featurizer_for(self, traj, cache: dict, ensemble: bool
+                        ) -> SingleTrajFeaturizer:
+        """Replay the recorded add_* calls onto ``traj`` — once per
+        topology. Same-topology members share one featurizer (same index
+        tables) and therefore ONE block runner."""
+        top = traj.top
+        key = (
+            traj.top_file,
+            getattr(top, "_custom_def_json", None),
+            # atom-identity signature guards against same-file trajs whose
+            # topologies diverged (e.g. different atom_slice selections)
+            hash(tuple(str(a) for a in top.atoms)),
+        )
+        if key in cache:
+            cache[key].device = self.device
+        else:
+            feat = SingleTrajFeaturizer(traj, self.block_size, self.device)
+            for name, args, kwargs in self._calls:
+                if name == "add_list_of_feats":
+                    kw = dict(kwargs)
+                    kw.setdefault("ensemble", ensemble)
+                    feat.add_list_of_feats(*args, **kw)
+                else:
+                    getattr(feat, name)(*args, **kwargs)
+            cache[key] = feat
+        return cache[key]
+
+    def apply(self, ensemble: bool = False) -> None:
+        """Featurize every member trajectory.
+
+        Members are PIPELINED: a background thread prepares the next
+        trajectory (feature construction on first topology encounter +
+        host-side coordinate decode, both GIL-releasing or pure-host work)
+        while the main thread runs the current trajectory's device blocks —
+        and same-topology members share one block runner."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        cache = self._keyed_cache(ensemble)  # reuse across apply() calls
+
+        def prepare(traj):
+            feat = self._featurizer_for(traj, cache, ensemble)
+            np.asarray(traj.xyz)  # decode off the main thread
+            return feat
+
+        per_traj: list[CVCollection] = []
+        trajs = list(self.trajs)
+        # one worker, ONE member ahead: submitting every member up front
+        # let the worker decode the whole ensemble's coordinates while the
+        # main thread was still on member 0 (unbounded prefetch — the
+        # entire dataset resident at once on out-of-core ensembles)
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(prepare, trajs[0]) if trajs else None
+            for i, traj in enumerate(trajs):
+                cur, fut = fut, (
+                    ex.submit(prepare, trajs[i + 1])
+                    if i + 1 < len(trajs) else None
+                )
+                feat = cur.result()
+                per_traj.append(feat.get_output_for(traj, ensemble=ensemble))
+
+        if not ensemble:
+            for traj, cvs in zip(self.trajs, per_traj):
+                for k in cvs:
+                    e = cvs.entry(k)
+                    _attach_cv(traj, k, e.data, e.labels, e.indices, e.attrs)
+            return
+
+        # optional ClustalW relabeling: residue numbers -> alignment columns
+        for traj, cvs in zip(self.trajs, per_traj):
+            res_map = getattr(traj, "clustal_w", None)
+            if res_map is None:
+                continue
+            from .alignment import apply_alignment_to_labels
+
+            # ONLY label families whose generic labels end in residue
+            # numbers may be rewritten to alignment columns; side_angles/
+            # side_distances labels end in flat feature counters
+            # ("SIDECHANGLE {k}") — rewriting those collides with other
+            # features' labels and silently merges union columns
+            for name in ("central_dihedrals", "side_dihedrals"):
+                if name in cvs:
+                    e = cvs.entry(name)
+                    e.labels = apply_alignment_to_labels(e.labels or [],
+                                                         res_map)
+
+        # union of CV names over ALL trajs (a CV present only in later
+        # trajs — e.g. side_dihedrals when traj 0 is all-glycine — must
+        # still align)
+        names: list[str] = []
+        for cvs in per_traj:
+            for k in cvs:
+                if k not in names:
+                    names.append(k)
+        for name in names:
+            is_3d = any(
+                name in cvs and cvs.entry(name).data.ndim == 3
+                for cvs in per_traj
+            )
+            if is_3d:
+                self._align_3d(name, per_traj)
+            else:
+                self._align_2d(name, per_traj)
+
+    def _align_2d(self, name: str, per_traj: list[CVCollection]) -> None:
+        all_labels: list[str] = []
+        for cvs in per_traj:
+            if name not in cvs:
+                continue
+            for lbl in cvs.entry(name).labels or []:
+                if lbl not in all_labels:
+                    all_labels.append(lbl)
+        all_labels = _sorted_labels(name, all_labels)
+        index = {lbl: i for i, lbl in enumerate(all_labels)}
+        for traj, cvs in zip(self.trajs, per_traj):
+            if name in cvs:
+                e = cvs.entry(name)
+                padded = np.full(
+                    (len(e.data), len(all_labels)), np.nan, np.float32
+                )
+                cols = [index[lbl] for lbl in (e.labels or [])]
+                padded[:, cols] = e.data
+                indices, attrs = e.indices, e.attrs
+            else:
+                padded = np.full(
+                    (traj.n_frames, len(all_labels)), np.nan, np.float32
+                )
+                indices, attrs = None, None
+            _attach_cv(traj, name, padded, all_labels, indices, attrs)
+
+    def _align_3d(self, name: str, per_traj: list[CVCollection]) -> None:
+        """Cartesian CVs: align at the *atom* level. Per-coordinate labels
+        are grouped into atom labels by dropping the axis token, so the
+        alignment holds even if a topology's label triplets were interleaved
+        or axis-ordered differently."""
+        atom_union: list[str] = []
+        rep_triplet: dict[str, list[str]] = {}
+        per_traj_atoms: list[Optional[list[str]]] = []
+        for cvs in per_traj:
+            if name not in cvs:
+                per_traj_atoms.append(None)
+                continue
+            e = cvs.entry(name)
+            atoms = _atom_labels(e.labels or [])
+            per_traj_atoms.append(atoms)
+            for a, lbls in atoms:
+                if a not in rep_triplet:
+                    atom_union.append(a)
+                    rep_triplet[a] = lbls
+        atom_union = _sorted_labels(name, atom_union)
+        index = {a: i for i, a in enumerate(atom_union)}
+        all_labels = [lbl for a in atom_union for lbl in rep_triplet[a]]
+        for traj, cvs, atoms in zip(self.trajs, per_traj, per_traj_atoms):
+            if atoms is not None:
+                e = cvs.entry(name)
+                padded = np.full(
+                    (len(e.data), len(atom_union), 3), np.nan, np.float32
+                )
+                cols = [index[a] for a, _ in atoms]
+                padded[:, cols] = e.data
+                indices, attrs = e.indices, e.attrs
+            else:
+                padded = np.full(
+                    (traj.n_frames, len(atom_union), 3), np.nan, np.float32
+                )
+                indices, attrs = None, None
+            _attach_cv(traj, name, padded, all_labels, indices, attrs)
+
+
+_AXIS_TOKENS = frozenset("XYZxyz")
+
+
+def _atom_labels(labels: list[str]) -> list[tuple[str, list[str]]]:
+    """Group per-coordinate cartesian labels into (atom_label, triplet)
+    pairs by dropping the axis token (e.g. "CENTERPOS X 3" -> "CENTERPOS 3").
+    Labels may appear in any order; each atom must occur exactly 3 times."""
+    order: list[str] = []
+    groups: dict[str, list[str]] = {}
+    for lbl in labels:
+        parts = lbl.split()
+        stripped_parts = []
+        dropped = False
+        for p in parts:
+            if not dropped and p in _AXIS_TOKENS:
+                dropped = True
+                continue
+            stripped_parts.append(p)
+        key = " ".join(stripped_parts)
+        if key not in groups:
+            order.append(key)
+            groups[key] = []
+        groups[key].append(lbl)
+    bad = {k: v for k, v in groups.items() if len(v) != 3}
+    if bad:
+        raise ValueError(
+            f"cartesian labels do not group into XYZ triplets: {bad}"
+        )
+    return [(k, groups[k]) for k in order]
+
+
+def _sorted_labels(name: str, labels: list[str]) -> list[str]:
+    """Deterministic label order for aligned ensembles: side dihedrals by
+    (resid, chi), central dihedrals by (resid, PSI<OMEGA<PHI) — the
+    reference's special sort orders (``featurizer.py:1984-2068``)."""
+    if name == "side_dihedrals":
+        def key(lbl):
+            parts = lbl.split()
+            return (int(parts[-1]), parts[1])
+        return sorted(labels, key=key)
+    if name == "central_dihedrals":
+        order = {"PSI": 0, "OMEGA": 1, "PHI": 2}
+        def key(lbl):
+            parts = lbl.split()
+            return (int(parts[-1]), order.get(parts[1], 3))
+        return sorted(labels, key=key)
+    return labels
+
+
+class Featurizer:
+    """Dispatch constructor mirroring the reference
+    (``featurizer.py:1415-1447``): SingleTraj -> SingleTrajFeaturizer,
+    TrajEnsemble -> EnsembleFeaturizer."""
+
+    def __new__(cls, traj: Any, **kwargs: Any):
+        from ..data.trajectory import SingleTraj, TrajEnsemble
+
+        if isinstance(traj, TrajEnsemble):
+            return EnsembleFeaturizer(traj, **kwargs)
+        if isinstance(traj, SingleTraj):
+            return SingleTrajFeaturizer(traj, **kwargs)
+        raise TypeError(f"cannot featurize {type(traj)}")

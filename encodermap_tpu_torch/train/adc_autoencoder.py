@@ -29,9 +29,12 @@ the matrix rows from 64), the hand-written backward of
 of the encoder input and of the flat or matrix CA pairs run on the
 sigmoid-loss kernels: twice forward and twice backward per step.
 
-Waiting for later slices (each raises ``NotImplementedError``): streaming
-(``train_streaming``, ``from_ensemble_h5``) and ``generate`` onto a
-topology (``backend="topology"``, ``"mdtraj"``, ``"mdanalysis"``).
+``generate`` onto a topology (``backend="topology"``, ``"mdtraj"``,
+``"mdanalysis"``) rotates a real structure's bonds into the decoded
+dihedrals (``misc/backmapping_offline.py``), on the trainer's device.
+
+Waiting for a later slice (raises ``NotImplementedError``): streaming
+(``train_streaming``, ``from_ensemble_h5``).
 """
 
 from __future__ import annotations
@@ -108,7 +111,8 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
     decoding and backmapping.
 
     Args:
-        trajs: a dict of CV arrays or an object with ``.CVs``.
+        trajs: a :class:`TrajEnsemble` (or any object with ``.CVs``) or a
+            dict of CV arrays.
         parameters: :class:`ADCParameters` (defaults if None).
         model_params: initial parameters (numpy arrays or tensors), e.g. a
             JAX model's, carried over with ``convert.params_from_numpy``.
@@ -140,10 +144,14 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         if self.p.reconstruct_sidechains:
             self.shapes = adc.ADCSidechainShapes.from_data(*self.train_data)
             info = self.p.sidechain_info
+            if info is None and hasattr(trajs, "trajs"):
+                info = trajs.trajs[0].top.sidechain_info()
+                self.p.sidechain_info = info
             if info is None:
                 raise ValueError(
                     "reconstruct_sidechains=True needs p.sidechain_info "
-                    "(residue -> n sidechain dihedrals)")
+                    "(residue -> n sidechain dihedrals) or a TrajEnsemble "
+                    "with topologies")
             self.sidechain_spec = make_spec({int(k): int(v) for k, v in info.items()})
         else:
             side = self.train_data[4] if len(self.train_data) == 5 else None
@@ -535,24 +543,46 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
     def generate(self, points: np.ndarray, backend: str = "scan",
                  top: Any = None, progbar: Any = None) -> np.ndarray:
         """Decode latent points and backmap them to ``(n_points, n_atoms,
-        3)`` coordinates with the training set's mean bond lengths (and
-        mean angles when angles are not trained): the mean central and side
-        bond lengths and every atom in reconstruct mode, each protein placed
-        by its decoded transform in multimer mode.
+        3)`` coordinates.
 
-        ``backend="scan"`` is the in-graph backmapping. The topology
-        backends (``"topology"``, ``"mdtraj"``, ``"mdanalysis"``) rebuild a
-        real topology, which needs the data layer of slice 3 of the port,
-        and raise ``NotImplementedError``."""
+        ``backend="scan"`` is the in-graph backmapping with the training
+        set's mean bond lengths (and mean angles when angles are not
+        trained): the mean central and side bond lengths and every atom in
+        reconstruct mode, each protein placed by its decoded transform in
+        multimer mode.
+
+        ``backend="topology"`` rotates a real topology's central-chain
+        bonds to the decoded central dihedrals (psi, omega, phi per
+        residue); pass ``top`` as a :class:`SingleTraj`, whose first frame
+        seeds the rotation. ``backend="mdtraj"`` and ``"mdanalysis"`` (the
+        reference's names, ``autoencoder/autoencoder.py:2466-2571``) both
+        run :func:`~encodermap_tpu_torch.misc.backmapping_offline.
+        mdtraj_backmapping`, the decoded side dihedrals included, with the
+        reference's ``top`` resolution (None → the ensemble's single
+        topology, int → the ``top``-th trajectory, str → a topology file
+        or a ``common_str`` of the ensemble); they return coordinates, not
+        an mdtraj or MDAnalysis object. The topology backends give the
+        full topology's atoms; their rotation sweep runs on this model's
+        device.
+        """
         del progbar  # the reference's signature
         if backend not in ("scan", "topology", "mdtraj", "mdanalysis"):
             raise TypeError(f"backend must be 'scan', 'topology', 'mdtraj' or "
                             f"'mdanalysis', but you provided {backend!r}")
-        if backend != "scan":
-            raise NotImplementedError(
-                f"generate(backend={backend!r}) rebuilds a topology, which "
-                f"needs the data layer (slice 3 of the port); use "
-                f"backend='scan'")
+        if backend in ("mdtraj", "mdanalysis"):
+            return self._generate_mdtraj(points, backend, top)
+        if backend == "topology":
+            assert top is not None, 'backend="topology" needs a `top` traj'
+            from ..misc.backmapping_offline import backmap_topology
+
+            out_dihedrals = self.decode(np.asarray(points, np.float32))[1]
+            t = top.top if hasattr(top, "top") else top
+            chain = t.central_atom_indices()
+            quads = np.stack([chain[:-3], chain[1:-2], chain[2:-1], chain[3:]],
+                             axis=1)
+            base = top.xyz[0] if hasattr(top, "xyz") else None
+            return backmap_topology(t, base, out_dihedrals, dihedral_indices=quads,
+                                    device=self.device)
         with torch.no_grad():
             z = torch.tensor(np.asarray(points, np.float32), device=self.device)
             lengths = self._mean_cv(3).expand(len(z), -1)
@@ -571,6 +601,43 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
                                         out_angles, out_dihedrals,
                                         decoded[3]).cpu().numpy()
             return backmap_op(lengths, out_angles, out_dihedrals).cpu().numpy()
+
+    def _generate_mdtraj(self, points: np.ndarray, backend: str, top: Any
+                         ) -> np.ndarray:
+        """The ``"mdtraj"`` / ``"mdanalysis"`` backends of :meth:`generate`."""
+        from ..misc.backmapping_offline import mdtraj_backmapping
+
+        trajs = getattr(self, "trajs", None)
+        if trajs is not None and not hasattr(trajs, "top"):
+            # a model built from a CV dict has no topology to rebuild
+            trajs = None
+        if trajs is None and top is None:
+            raise ValueError(
+                f"backend={backend!r} rebuilds against a real topology, but "
+                "this model was constructed from CV arrays (no TrajEnsemble); "
+                "pass `top` as a topology file path or a SingleTraj.")
+        if top is None and trajs is not None and len(trajs.top) > 1:
+            raise ValueError(
+                f"The ensemble has {len(trajs.top)} topologies; pass `top` as "
+                "an int (trajectory index), a topology file path, or one of "
+                "the ensemble's common_str to pick which to rebuild.")
+        if (isinstance(top, str) and trajs is not None
+                and top in getattr(trajs, "common_str", ())):
+            # the reference resolves common_str before file paths
+            # (autoencoder.py:2546-2548): seed from that sub-ensemble
+            trajs = trajs.trajs_by_common_str[top][0]
+            top = None
+        decoded = self.decode(np.asarray(points, np.float32))
+        if len(decoded) == 2:
+            dihedrals, side = decoded[1], None
+        elif self.p.reconstruct_sidechains:
+            # (central_angles, central_dihedrals, side_angles, side_dihedrals)
+            dihedrals, side = decoded[1], decoded[3]
+        else:
+            dihedrals, side = decoded[1], decoded[2]
+        return mdtraj_backmapping(top=top, dihedrals=dihedrals,
+                                  sidechain_dihedrals=side, trajs=trajs,
+                                  device=self.device)
 
     # ----------------------------------------------------------- persistence
     @classmethod

@@ -60,7 +60,7 @@ __all__ = ["Autoencoder", "EncoderMap", "DihedralEncoderMap"]
 
 #: what a streaming entry point says: it waits for slice 4 of the port
 STREAMING_LATER = ("(streaming from HDF5) is not ported to encodermap_tpu_torch "
-                   "yet; it is slice 4 of the port (scale-out). Train from "
+                   "yet; it is slice 5 of the port (scale-out). Train from "
                    "in-memory data with train()")
 
 
@@ -535,16 +535,38 @@ class EncoderMap(Autoencoder):
 
 
 class DihedralEncoderMap(EncoderMap):
-    """EncoderMap over backbone dihedrals (reference
-    ``autoencoder.py:1310-1400``). Its ``generate`` returns the decoded
-    dihedrals; rotating a topology into them waits for the data slice."""
+    """EncoderMap over backbone dihedrals whose ``generate`` backmaps onto a
+    real topology by rotating its phi/psi bonds (reference
+    ``autoencoder.py:1310-1400``, which uses MDAnalysis; here the rotation
+    sweep of ``misc/backmapping_offline.py`` on the model's device).
+
+    Training data layout must be [all phi, all psi] in residue order, as the
+    reference's ``dihedral_backmapping`` expects.
+    """
 
     def generate(self, latent: np.ndarray, top: Any = None) -> Any:
-        """Decode latent points to dihedrals. ``top`` (a topology to rotate
-        into them) is not supported yet and raises."""
-        if top is not None:
-            raise NotImplementedError(
-                "DihedralEncoderMap.generate(top=...) needs the data and "
-                "backmapping layer, which is slice 3 of the port; call it "
-                "with top=None for the raw dihedrals")
-        return self.decode(np.asarray(latent, np.float32))
+        """Decode latent points to dihedrals and rotate a topology into them.
+
+        Args:
+            latent: ``(n, 2)`` latent points.
+            top: a pdb path or :class:`SingleTraj` providing topology + seed
+                coordinates. Without it, raw dihedrals are returned.
+
+        Returns:
+            A :class:`SingleTraj` of generated conformations (or the raw
+            dihedral array when ``top`` is None).
+        """
+        dihedrals = self.decode(np.asarray(latent, np.float32))
+        if top is None:
+            return dihedrals
+        from ..data.trajectory import SingleTraj
+        from ..misc.backmapping_offline import backmap_topology
+
+        if not isinstance(top, SingleTraj):
+            top = SingleTraj(top)
+        xyz = backmap_topology(top.top, top.xyz[0], dihedrals, device=self.device)
+        out = top[np.zeros(len(xyz), dtype=int)]
+        out.load()
+        out._xyz = xyz
+        out._materialized = True
+        return out

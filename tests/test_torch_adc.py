@@ -205,8 +205,11 @@ def test_encode_decode_generate_match_jax(same):
     bonds = np.linalg.norm(np.diff(xyz, axis=1), axis=-1)
     np.testing.assert_allclose(bonds, np.broadcast_to(data["central_distances"].mean(0),
                                                       bonds.shape), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    # the topology backends need a topology: a CV-dict model has none
+    with pytest.raises(AssertionError, match="needs a `top`"):
         et.generate(z, backend="topology")
+    with pytest.raises(ValueError, match="no TrajEnsemble"):
+        et.generate(z, backend="mdtraj")
     with pytest.raises(TypeError):
         et.generate(z, backend="nope")
 
@@ -267,7 +270,7 @@ def test_frozen_densifiers_stay_put(tmp_path):
 
 
 def test_entry_points_refuse_what_waits_for_later_slices(tmp_path):
-    """Without a card the default device raises; streaming (slice 4)
+    """Without a card the default device raises; streaming (slice 5)
     raises ``NotImplementedError``; sidechain reconstruction and multimer
     training construct, and combine with sparse CVs or with each other
     only to raise the JAX package's ``ValueError``."""
@@ -280,9 +283,9 @@ def test_entry_points_refuse_what_waits_for_later_slices(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             emt.AngleDihedralCartesianEncoderMap(data, p)
     et = emt.AngleDihedralCartesianEncoderMap(data, p, device="cpu", read_only=True)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         et.train_streaming(str(tmp_path / "ens.h5"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         emt.AngleDihedralCartesianEncoderMap.from_ensemble_h5(str(tmp_path / "ens.h5"), p)
 
     # sidechain reconstruction: seven CVs of a 5-residue chain

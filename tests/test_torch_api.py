@@ -6,7 +6,7 @@ The metric classes take the JAX package's arguments (compared with
 ``inspect.signature``: names, kinds and defaults), and each is called once
 against its JAX counterpart: ``rmsd_numpy`` to 1e-5 nm on both values of
 ``translate``, the step-mismatch check, ``get_config``/``from_config``, and
-the empty bases. Streaming is slice 4 of the port: ``train_streaming``
+the empty bases. Streaming is slice 5 of the port: ``train_streaming``
 raises ``NotImplementedError`` on every trainer and says so.
 """
 
@@ -89,5 +89,5 @@ def test_train_streaming_waits_for_slice_4(tmp_path):
     for cls in (emt.Autoencoder, emt.EncoderMap, emt.DihedralEncoderMap):
         emap = cls(emt.Parameters(main_path=str(tmp_path), n_neurons=[8, 8, 2]), data,
                    read_only=True, device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="slice 5"):
             emap.train_streaming(str(tmp_path / "data.h5"))

@@ -25,7 +25,13 @@ gradient of rounding noise into a full step of either sign, losses 1e-4
 and all but 1 % of the weights 1e-4). The same holds for the sidechain-
 reconstruction and the multimer modes at trp-cage scale. The fast
 sidechain backmap (trp-cage, 114 atoms) on the card stays within 3x the
-CPU's own float32 distance from float64, forward and backward."""
+CPU's own float32 distance from float64, forward and backward.
+
+The data layer: featurization of a synthetic peptide on the card against
+the CPU (distances and Cartesians 1e-6 nm, angles and dihedrals 1e-5 rad,
+dihedrals modulo 2 pi), the minimum image in orthorhombic and triclinic
+boxes likewise, and the rotation sweep of ``backmap_topology`` on the card
+against the CPU to 1e-4 nm."""
 
 import math
 
@@ -452,3 +458,97 @@ def _leaves(tree):
     from encodermap_tpu_torch.train.core import tree_leaves
 
     return tree_leaves(tree)
+
+
+def _peptide_files(tmp_path, n_frames=16):
+    from chip_smoke import ALL_AMINO_ACIDS, synthetic_protein
+    from encodermap_tpu_torch.data.pdb import write_pdb
+    from encodermap_tpu_torch.data.xtc import write_xtc
+
+    top, xyz = synthetic_protein(ALL_AMINO_ACIDS, n_frames, seed=0)
+    write_pdb(tmp_path / "p.pdb", top, xyz[:1])
+    write_xtc(tmp_path / "p.xtc", xyz)
+    return str(tmp_path / "p.xtc"), str(tmp_path / "p.pdb")
+
+
+def _wrapped(a, b, dihedral):
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    if dihedral:
+        d = (d + np.pi) % (2 * np.pi) - np.pi
+    return float(np.nanmax(np.abs(d)))
+
+
+@pytest.mark.parametrize("which", ["all", "full"])
+def test_featurization_on_card_matches_cpu(cuda, tmp_path, which):
+    """``load_CV(which)`` of a 20-residue peptide, 16 frames, on the card
+    against the CPU."""
+    import encodermap_tpu_torch as em
+
+    files = _peptide_files(tmp_path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        traj = em.SingleTraj(*files)
+        traj.load_CV(which, device=dev)
+        out[dev] = traj.CVs
+    assert out["cuda"].keys() == out["cpu"].keys()
+    for k in out["cpu"]:
+        tol = 1e-5 if ("angle" in k or "dihedral" in k) else 1e-6
+        assert _wrapped(out["cuda"][k], out["cpu"][k], "dihedral" in k) <= tol, k
+
+
+@pytest.mark.parametrize("triclinic", [False, True], ids=["orthorhombic", "triclinic"])
+def test_minimum_image_on_card_matches_cpu(cuda, triclinic):
+    """Distances, angles and dihedrals of random points in a periodic cell,
+    card against CPU. The rows are chosen as in tests/test_torch_featurize.py:
+    distinct atoms, both bond angles within 0.5-2.6 rad (a straight triple
+    leaves the dihedral ill-conditioned in float32), and no pair whose two
+    nearest images lie within 1e-4 nm (a tie the two devices may break
+    either way)."""
+    from encodermap_tpu_torch.ops import geometry as geom
+
+    rng = np.random.default_rng(1)
+    box = np.diag([2.0, 2.3, 2.6])
+    if triclinic:
+        box[1, 0], box[2, 0], box[2, 1] = 0.7, -0.5, 0.9
+    xyz = rng.uniform(-1.0, 3.5, (8, 40, 3)).astype(np.float32)
+    boxes = np.broadcast_to(box, (8, 3, 3)).astype(np.float32)
+    idx = np.stack([rng.choice(40, 4, replace=False) for _ in range(2000)])
+    x64, b64 = torch.tensor(xyz, dtype=torch.float64), torch.tensor(boxes, dtype=torch.float64)
+    bends = [geom.compute_angles(x64, idx[:, k:k + 3], b64).numpy() for k in (0, 1)]
+    shifts = np.array([[i, j, k] for i in range(-2, 3) for j in range(-2, 3)
+                       for k in range(-2, 3)], np.float64) @ box
+    ok = np.all([(b > 0.5) & (b < 2.6) for b in bends], axis=(0, 1))
+    for a, b in ((0, 1), (1, 2), (2, 3), (0, 2)):
+        d = (xyz[:, idx[:, b]] - xyz[:, idx[:, a]]).astype(np.float64)
+        lens = np.sort(np.linalg.norm(d[..., None, :] - shifts, axis=-1), axis=-1)
+        ok &= (lens[..., 1] - lens[..., 0]).min(0) > 1e-4
+    idx = idx[ok][:100]
+    assert len(idx) == 100
+    res = {}
+    for dev in ("cuda", "cpu"):
+        x, b = torch.tensor(xyz, device=dev), torch.tensor(boxes, device=dev)
+        res[dev] = [f(x, idx[:, :k], b).cpu().numpy() for f, k in (
+            (geom.compute_distances, 2), (geom.compute_angles, 3),
+            (geom.compute_dihedrals, 4))]
+    for j, tol in enumerate((1e-6, 1e-5, 1e-5)):
+        assert _wrapped(res["cuda"][j], res["cpu"][j], j == 2) <= tol
+
+
+def test_dihedral_rotate_on_card_matches_cpu(cuda):
+    """``backmap_topology`` of a 20-residue peptide onto 64 random central
+    and side dihedral sets: the card's sweep against the CPU's, 1e-4 nm."""
+    from chip_smoke import ALL_AMINO_ACIDS, synthetic_protein
+    from encodermap_tpu_torch.loading.features import SideChainDihedrals
+    from encodermap_tpu_torch.misc.backmapping_offline import backmap_topology
+
+    top, xyz = synthetic_protein(ALL_AMINO_ACIDS, 1, seed=0)
+    chain = top.central_atom_indices()
+    quads = np.stack([chain[:-3], chain[1:-2], chain[2:-1], chain[3:]], axis=1)
+    n_side = len(SideChainDihedrals(top)._indices)
+    rng = np.random.default_rng(2)
+    cen = rng.uniform(-np.pi, np.pi, (64, len(quads))).astype(np.float32)
+    side = rng.uniform(-np.pi, np.pi, (64, n_side)).astype(np.float32)
+    out = [backmap_topology(top, xyz[0], cen, dihedral_indices=quads, side_dihedrals=side,
+                            device=dev) for dev in ("cuda", "cpu")]
+    assert out[0].shape == (64, top.n_atoms, 3)
+    assert float(np.abs(out[0] - out[1]).max()) <= 1e-4

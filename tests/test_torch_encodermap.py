@@ -194,8 +194,18 @@ def test_dihedral_generate_and_gaps(tmp_path):
         device="cpu")
     out = emap.generate(np.zeros((3, 2), np.float32))
     assert out.shape == (3, 4) and np.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        emap.generate(np.zeros((3, 2), np.float32), top="x.pdb")
+    # onto a topology: a 3-residue peptide has 2 phi and 2 psi, the 4 inputs
+    from chip_smoke import synthetic_protein
+    from encodermap_tpu_torch.data.pdb import write_pdb
+    from encodermap_tpu_torch.ops import geometry as geom
+
+    top, xyz = synthetic_protein("ASG", 1, seed=0)
+    write_pdb(tmp_path / "asg.pdb", top, xyz)
+    gen = emap.generate(np.zeros((3, 2), np.float32), top=str(tmp_path / "asg.pdb"))
+    assert gen.n_frames == 3 and gen.xyz.shape == (3, top.n_atoms, 3)
+    quads = np.vstack([top.indices_phi, top.indices_psi])
+    got = geom.compute_dihedrals(torch.tensor(gen.xyz, dtype=torch.float64), quads).numpy()
+    assert float(np.abs((got - out + np.pi) % (2 * np.pi) - np.pi).max()) <= 1e-3
     with pytest.raises(NotImplementedError):
         MetricsWriter(tmp_path, tensorboard=True)
     with pytest.raises(NotImplementedError):
