@@ -19,9 +19,15 @@ the step) and multimer training (a trp-cage homodimer placed by decoded
 transforms). Its last leg is BASELINE config 4: a synthetic M1-linked
 diubiquitin written as PDB + XTC, loaded and featurized on the card (held
 against the CPU), the ADC trained on the trajectory ensemble itself, and
-conformations generated onto the topology by the rotation sweep. It holds
-the sigmoid-loss kernels against their plain versions at each ADC width,
-and checks what comes out. Prints one JSON
+conformations generated onto the topology by the rotation sweep. Then
+BASELINE config 5: ``train_streaming`` over a million-frame memmap at
+[128,128,2], B=256, 1000-step superbatches (pinned uploads on a side
+stream, held bit for bit to the in-memory chunk trainer), the ADC streaming
+diUbi CV superbatches, and a one-rank NCCL group that trains config 5 with
+``mesh_shape={"dp": 1}`` through the data-parallel gather path and runs
+``ShardedFeaturizer``. It holds the sigmoid-loss kernels against their
+plain versions at each ADC width and at config 5's, and checks what comes
+out. Prints one JSON
 line per kernel set before the last line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is non-zero and no result line is printed.
@@ -1146,7 +1152,7 @@ def check_reload(em, emap, cvs: dict, run_dir: Path, tag: str) -> np.ndarray:
 def phase_adc_sidechains(em, fs, _build, run_dir: Path) -> dict:
     """Sidechain reconstruction at trp-cage scale: 20 residues with
     ``TRP_CAGE_SIDECHAIN_INFO`` (114 atoms), 4096 frames, [128,128,2],
-    B=256, 200 steps in 2 chunks of 100. The sketch-map losses run on the
+    B=256, 100 steps in 2 chunks of 50. The sketch-map losses run on the
     kernels at D=206 periodic (central and side angles and dihedrals) and
     D=666 (the pairs of 20 CAs and 17 branch ends). Checks the launches,
     the loss, generate's bond lengths, a checkpoint round trip and the fast
@@ -1161,13 +1167,13 @@ def phase_adc_sidechains(em, fs, _build, run_dir: Path) -> dict:
 
     tag = "adc sidechains"
     cvs = sidechain_cvs(4096, seed=3)
-    p = adc_params(em, run_dir, 200, 100, reconstruct_sidechains=True,
+    p = adc_params(em, run_dir, 100, 50, reconstruct_sidechains=True,
                    sidechain_info=TRP_CAGE_SIDECHAIN_INFO)
     emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2)
     spec = emap.sidechain_spec
     check(spec.n_atoms == 114 and spec.n_sidechain_atoms == 54,
           f"{tag}: the spec has {spec.n_atoms} atoms")
-    chunks = hist["loss"].reshape(2, 100).mean(1)
+    chunks = hist["loss"].reshape(2, 50).mean(1)
     log(f"[{tag}] chunk mean loss {chunks.round(4).tolist()}")
     check(chunks[1] < chunks[0], f"{tag}: the loss did not fall")
 
@@ -1228,7 +1234,8 @@ def phase_adc_sidechains(em, fs, _build, run_dir: Path) -> dict:
 
 def phase_adc_multimer(em, fs, _build, run_dir: Path) -> dict:
     """Multimer training on a trp-cage homodimer (``multimer_lengths=[20,
-    20]``, 120 atoms), 4096 frames, [128,128,2], B=256, 100 steps. The
+    20]``, 120 atoms), 4096 frames, [128,128,2], B=256, 100 steps in 2
+    chunks of 50. The
     kernels run at D=304 periodic (angles, dihedrals, side dihedrals) and
     D=780 (the pairs of 40 CAs). Checks the launches, generate's shape and
     each protein's bond lengths (the second's once its decoded transform is
@@ -1238,7 +1245,7 @@ def phase_adc_multimer(em, fs, _build, run_dir: Path) -> dict:
 
     tag = "adc multimer"
     cvs = dimer_cvs(4096, seed=4)
-    p = adc_params(em, run_dir, 100, 100, multimer_training="homogeneous_transformation",
+    p = adc_params(em, run_dir, 100, 50, multimer_training="homogeneous_transformation",
                    multimer_lengths=[20, 20])
     emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2)
     first, last = hist["loss"][:10].mean(), hist["loss"][-10:].mean()
@@ -1460,8 +1467,296 @@ def phase_featurize(em, fs, _build, run_dir: Path, n_frames: int = 2048) -> dict
     log(f"[{tag}] generated frames written to XTC and read back: {again.n_frames} frames "
         f"within {r_err:.2e} nm")
     check(again.n_frames == 256 and r_err <= 5.01e-4, f"{tag}: generated XTC round trip")
-    return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall, trajs=trajs, cvs=cvs)
 
+
+# --------------------------------------------------------- slice 5: scale-out
+class Recorder:
+    """Passes a source's superbatches on and keeps them."""
+
+    def __init__(self, source) -> None:
+        self.source, self.seen = source, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        sb = next(self.source)
+        self.seen.append(sb)
+        return sb
+
+
+def _params_copy(emap) -> dict:
+    from encodermap_tpu_torch.train.core import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), emap.state.params)
+
+
+def _same_params(a, b) -> bool:
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.state.params),
+                                                 tree_leaves(b.state.params)))
+
+
+#: config 5 (BASELINE.md line 36, bench.py:323-392): 1,000,000 frames of 6
+#: features, [128,128,2], B=256, 1000-step superbatches
+STREAM_FRAMES, STREAM_B, STREAM_STEPS = 1_000_000, 256, 1000
+
+
+def phase_streaming(em, fs, _build, run_dir: Path) -> dict:
+    """BASELINE config 5 at full width: a million 6-feature frames from seed
+    0, written once as a 24 MB ``.npy`` and read as a memmap by the port's
+    ``train/core.py::ArrayBatchSource`` (the sampler of ``HDF5BatchSource``;
+    the card machine has no h5py); ``EncoderMap.train_streaming`` over 3
+    superbatches of 1000 steps at B=256, [128,128,2] (the port's
+    PrefetchSource, pinned uploads on a side stream, kernels 2-3 once each a
+    step). Checks the launches, the uploads, that the loss falls, and that
+    the in-memory chunk trainer fed the same batches ends with the same
+    parameters bit for bit. Times the source alone, ``train_streaming``, one
+    chunk (host clock ending in a sync, and the device's busy time and idle
+    share), two chunks with prefetch 2 against none; holds kernels 2-3 at
+    this path's shape."""
+    from encodermap_tpu_torch.models import sequential as seq
+    from encodermap_tpu_torch.train import core
+
+    tag = "streaming"
+    smi = smi_line()
+    run_dir.mkdir(parents=True, exist_ok=True)
+    path = run_dir / "frames.npy"
+    np.save(path, np.random.default_rng(0).standard_normal((STREAM_FRAMES, 6))
+            .astype(np.float32))
+    frames = np.load(path, mmap_mode="r")
+    B, S = STREAM_B, STREAM_STEPS
+    src = core.ArrayBatchSource([(frames,)], B, S, seed=0)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        next(src)
+    t_src = time.perf_counter() - t0
+    log(f"[{tag}] source alone (8 windows of a 1M x 6 memmap, carved into ({S}, {B}, 6)): "
+        f"{3 * S * B / t_src:.0f} samples/s ({t_src / 3 * 1e3:.1f} ms a superbatch; {smi})")
+
+    kw = dict(n_neurons=[128, 128, 2], batch_size=B, steps_per_scan=S, seed=0,
+              periodicity=float("inf"))
+    proto = np.random.default_rng(1).standard_normal((64, 6)).astype(np.float32)
+    emap = em.EncoderMap(em.Parameters(main_path=str(run_dir / "run"), n_steps=3 * S, **kw),
+                         proto)
+    init = _params_copy(emap)
+    uploaders = []
+    plain_uploader = core.PinnedUploader
+
+    class Seen(plain_uploader):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            uploaders.append(self)
+
+    source = Recorder(core.ArrayBatchSource([(frames,)], B, S, seed=0))
+    core.PinnedUploader = Seen
+    try:
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        hist = emap.train_streaming(source)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+    finally:
+        core.PinnedUploader = plain_uploader
+    n = 3 * S
+    check(counts.get("sigmoid_fwd") == n and counts.get("sigmoid_bwd") == n,
+          f"{tag}: sigmoid kernels launched {counts}, expected {n} each")
+    check(not counts.get("fused_train") and not counts.get("fused_train_cluster"),
+          f"{tag}: a fused train kernel ran")
+    up = uploaders[0] if len(uploaders) == 1 else None
+    check(up is not None and up.copies == 3 and up.stream is not None
+          and up.stream != torch.cuda.current_stream(),
+          f"{tag}: the superbatches did not go through one pinned uploader on a side stream")
+    first, last = hist["loss"][:100].mean(), hist["loss"][-100:].mean()
+    check(bool(np.isfinite(hist["loss"]).all()) and last < first, f"{tag}: the loss did not fall")
+    log(f"[{tag}] train_streaming: {n} steps, launches {counts}; {up.copies} superbatches "
+        f"uploaded from pinned memory on a side stream; loss first 100 steps {first:.4f} -> "
+        f"last 100 {last:.4f}; {n * B / wall:.0f} samples/s ({wall:.2f} s, host clock ending "
+        f"in a sync; {smi})")
+
+    data = np.concatenate([sb[0].reshape(-1, 6) for sb in source.seen[:3]])
+    ref = em.EncoderMap(em.Parameters(main_path=str(run_dir / "ref"), n_steps=n,
+                                      fused_trainer=False, **kw), data, model_params=init,
+                        read_only=True)
+    ref.train(index_stream=iter(np.arange(n * B).reshape(3, S, B)))
+    torch.cuda.synchronize()
+    same = _same_params(emap, ref)
+    log(f"[{tag}] the in-memory chunk trainer fed the same {n} batches as injected indices: "
+        f"parameters bit-identical {same}")
+    check(same, f"{tag}: streamed parameters differ from the chunk trainer's on the same batches")
+
+    timing = em.EncoderMap(em.Parameters(main_path=str(run_dir / "t"), n_steps=n, **kw), proto,
+                           model_params=init, read_only=True)
+
+    def one_chunk(steps=S):
+        timing.train_streaming(iter([(source.seen[0][0][:steps],)]), n_steps=steps)
+
+    one_chunk()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_chunk()
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / S
+    # the profiler's summary of a 1000-step chunk (~300k device operations)
+    # is slow on the host: its first 100 steps, per step
+    busy = device_split(lambda: one_chunk(100), ms_step, 100, tag)
+    out = {}
+    for depth in (2, 0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core.run_streaming(timing, core.ArrayBatchSource([(frames,)], B, S, seed=1), 2 * S,
+                           prefetch=depth)
+        torch.cuda.synchronize()
+        out[depth] = (time.perf_counter() - t0) * 1e3
+    log(f"[{tag}] one chunk: {ms_step:.3f} ms/step (host clock ending in a sync), device busy "
+        f"{busy:.3f} ms/step (a 100-step chunk); two chunks from the memmap: prefetch 2 "
+        f"{out[2]:.1f} ms, prefetch 0 {out[0]:.1f} ms ({smi})")
+
+    sb = torch.tensor(source.seen[0][0][0], device="cuda")
+    with torch.no_grad():
+        lat = seq.encode(emap.state.params, emap.p, sb).contiguous()
+    kern = hold_sigmoid(fs, sb, lat, tuple(emap.p.dist_sig_parameters), float("inf"),
+                        f"{tag} sigmoid B={B} D=6 euclid", reps=20, plain_reps=5)
+    return dict(counts=counts, kernels={(6, False): kern}, wall=wall, ms_step=ms_step,
+                superbatches=source.seen[:2], init=init, kw=kw, proto=proto)
+
+
+def phase_adc_streaming(em, fs, _build, run_dir: Path, feat: dict) -> dict:
+    """The ADC's ``train_streaming`` on the card: tuple superbatches of the
+    five CVs carved from ``phase_featurize``'s diUbi ensemble by
+    ``train/core.py::ArrayBatchSource``, B=256, 2 superbatches of 50 steps.
+    Checks the launches (kernels 2-3 twice a step each), that the loss
+    falls; holds kernels 2-3 at D=1,229 periodic and 23,104 to float64 (as
+    ``phase_featurize`` does)."""
+    from encodermap_tpu_torch.train import core
+
+    tag = "adc streaming"
+    smi = smi_line()
+    cvs = feat["cvs"]
+    arrays = []
+    for k in CV_KEYS:
+        a = np.asarray(cvs[k], np.float32)
+        arrays.append(a.reshape(len(a), -1, 3) if k == "central_cartesians" and a.ndim == 2
+                      else a)
+    p = adc_params(em, run_dir, 100, 50)
+    emap = em.AngleDihedralCartesianEncoderMap(cvs, p)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    hist = emap.train_streaming(core.ArrayBatchSource([arrays], 256, 50, seed=2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    check(counts.get("sigmoid_fwd") == 200 and counts.get("sigmoid_bwd") == 200,
+          f"{tag}: sigmoid kernels launched {counts}, expected 200 each")
+    first, last = hist["loss"][:10].mean(), hist["loss"][-10:].mean()
+    check(bool(np.isfinite(hist["loss"]).all()) and last < first, f"{tag}: the loss did not fall")
+    log(f"[{tag}] diUbi, 2 superbatches of (50, 256, ...): launches {counts}; loss first 10 "
+        f"steps {first:.4f} -> last 10 {last:.4f}; {100 * 256 / wall:.0f} samples/s "
+        f"({wall:.2f} s, host clock ending in a sync; {smi})")
+    rows = np.random.default_rng(3).integers(0, len(arrays[0]), 256)
+    inputs = adc_kernel_inputs(emap, cvs, rows)
+    check(set(inputs) == {(1229, 2 * math.pi), (152 ** 2, float("inf"))},
+          f"{tag}: kernel widths {sorted(inputs)}")
+    kern = adc_kernel_check(fs, inputs, tag, oracle=True)
+    return dict(counts=counts, kernels=kern, wall=wall)
+
+
+def phase_distributed(em, fs, _build, run_dir: Path, stream: dict, feat: dict) -> dict:
+    """Data parallelism on the one card: an NCCL process group of one rank
+    (``file://`` rendezvous in the run directory). Config 5's streaming for
+    2 chunks with ``mesh_shape={"dp": 1}``, through the gather path, against
+    the same superbatches without a mesh: the parameters bit for bit. Then
+    ``ShardedFeaturizer`` on the first diUbi trajectory, its CVs against
+    ``phase_featurize``'s within ``CV_TOL``. Several ranks are shown on the
+    CPU (``tests/test_torch_distributed.py``); time across cards needs a
+    machine with more of them."""
+    import os
+
+    import torch.distributed as dist
+
+    from encodermap_tpu_torch import parallel
+    from encodermap_tpu_torch.parallel.sharded_featurize import ShardedFeaturizer
+    from encodermap_tpu_torch.train import autoencoder as ae
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    tag = "distributed"
+    smi = smi_line()
+    run_dir.mkdir(parents=True, exist_ok=True)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    parallel.initialize(init_method=f"file://{run_dir / 'rendezvous'}", world_size=1, rank=0)
+    try:
+        check(dist.get_backend() == "nccl", f"{tag}: backend {dist.get_backend()}")
+        sbs = stream["superbatches"]
+        n = 2 * STREAM_STEPS
+        runs, counts = {}, {}
+        gathered = []
+        plain_gather = ae.gather_rows
+
+        def recording_gather(x, group=None):
+            gathered.append((x.numel(), x.requires_grad))
+            return plain_gather(x, group)
+
+        for name, mesh in (("one device", None), ("dp=1 mesh", {"dp": 1})):
+            ae.gather_rows = recording_gather
+            m = em.EncoderMap(em.Parameters(main_path=str(run_dir / name), n_steps=n,
+                                            mesh_shape=mesh, **stream["kw"]),
+                              stream["proto"], model_params=stream["init"], read_only=True)
+            torch.cuda.synchronize()
+            _build.launch_counts.clear()
+            t0 = time.perf_counter()
+            try:
+                m.train_streaming(iter(sbs))
+            finally:
+                ae.gather_rows = plain_gather
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = dict(_build.launch_counts)
+            check(c.get("sigmoid_fwd") == n and c.get("sigmoid_bwd") == n,
+                  f"{tag} {name}: sigmoid kernels launched {c}")
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+            runs[name] = (m, wall)
+            log(f"[{tag}] {name}: {n} streamed steps, {n * STREAM_B / wall:.0f} samples/s "
+                f"({wall:.2f} s, host clock ending in a sync; {smi})")
+        check(len(gathered) == 2 * n, f"{tag}: {len(gathered)} gathers in {n} dp steps")
+        # what a ring moves per rank and step at N ranks: the all-gathers of
+        # the rows (global batch x widths), the reduce-scatter of the rows
+        # that carry a gradient, the all-reduce of the parameter gradients
+        rows = sum(k for k, _ in gathered) * 4 / n
+        grad_rows = sum(k for k, g in gathered if g) * 4 / n
+        params = sum(t.numel() for t in tree_leaves(runs["dp=1 mesh"][0].state.params)) * 4
+        for N in (2, 4, 8):
+            f = (N - 1) / N
+            log(f"[{tag}] collective bytes a step per rank at N={N} (ring): all-gather "
+                f"{f * rows:.0f}, reduce-scatter {f * grad_rows:.0f}, gradient all-reduce "
+                f"{2 * f * params:.0f}, total {f * (rows + grad_rows + 2 * params):.0f} "
+                f"(config 5, B={STREAM_B}; read from this run's gathers)")
+        same = _same_params(runs["one device"][0], runs["dp=1 mesh"][0])
+        log(f"[{tag}] the dp=1 gather path against one device: parameters bit-identical {same}")
+        check(same, f"{tag}: the dp=1 mesh's parameters differ from the one-device run's")
+
+        mesh = parallel.make_mesh(dp=1)
+        traj = feat["trajs"].trajs[0]
+        sharded = ShardedFeaturizer(traj, mesh=mesh)
+        sharded.add_list_of_feats("all")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sharded.get_output(ensemble=True)
+        torch.cuda.synchronize()
+        t_feat = time.perf_counter() - t0
+        errs = cv_errors(out, traj._CVs)
+        log(f"[{tag}] ShardedFeaturizer, one NCCL rank, {traj.n_frames} diUbi frames: "
+            f"{traj.n_frames / t_feat:.0f} frames/s (host clock ending in a sync; {smi}); "
+            f"against phase_featurize's CVs: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        check(all(v <= CV_TOL[k] for k, v in errs.items()), f"{tag}: sharded CVs off")
+    finally:
+        dist.destroy_process_group()
+    return dict(counts=counts)
 
 
 def main() -> int:
@@ -1496,10 +1791,19 @@ def main() -> int:
                             ("adc512", phase_adc_analytic),
                             ("adc_sidechains", phase_adc_sidechains),
                             ("adc_multimer", phase_adc_multimer),
-                            ("featurize", phase_featurize)):
+                            ("featurize", phase_featurize),
+                            ("streaming", phase_streaming)):
             t0 = time.perf_counter()
             adc_legs.append(phase(em, fs, _build, Path(tmp) / name))
             log(f"[leg] {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
+        feat, stream = adc_legs[-2], adc_legs[-1]
+        t0 = time.perf_counter()
+        adc_legs.append(phase_adc_streaming(em, fs, _build, Path(tmp) / "adc_streaming", feat))
+        log(f"[leg] phase_adc_streaming: {time.perf_counter() - t0:.1f} s wall")
+        t0 = time.perf_counter()
+        adc_legs.append(phase_distributed(em, fs, _build, Path(tmp) / "distributed", stream,
+                                          feat))
+        log(f"[leg] phase_distributed: {time.perf_counter() - t0:.1f} s wall")
 
     main_sig = sig["D=3 euclid"]
     cube = fused["cube d0=3"]

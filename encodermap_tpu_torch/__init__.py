@@ -13,7 +13,11 @@ kernels. Slice 3 adds the ADC's sidechain reconstruction
 (``multimer_training="homogeneous_transformation"``). Slice 4 adds the data
 layer: trajectories (``load``, ``SingleTraj``, ``TrajEnsemble``, PDB and
 XTC files), featurization on the card (``Featurizer``, ``load_CVs``) and
-generation onto a topology (``generate(backend="topology")``).
+generation onto a topology (``generate(backend="topology")``). Slice 5 is
+scale-out: out-of-core training from superbatch sources (``train_streaming``,
+``train/core.py::HDF5BatchSource``, pinned uploads on a side stream) and
+data parallelism over ``torch.distributed`` (``mesh_shape={"dp": N}`` with
+one process per device, ``parallel/``).
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed::
 
@@ -29,6 +33,13 @@ Entry points run on the CUDA card unless ``device="cpu"`` is passed::
     adc = em.AngleDihedralCartesianEncoderMap(trajs, em.ADCParameters())
     adc.train()                            # or a dict of CV arrays
     xyz = adc.generate(adc.encode()[:10], backend="topology", top=trajs[0])
+
+    trajs.save("ens.h5")                   # out of core (needs h5py)
+    adc = em.AngleDihedralCartesianEncoderMap.from_ensemble_h5("ens.h5", em.ADCParameters())
+    adc.train_streaming("ens.h5")
+
+    # torchrun --nproc-per-node 4 train.py, with in train.py:
+    p = em.Parameters(mesh_shape={"dp": 4})  # each rank 1/4 of every batch
 """
 
 from .data.api import load

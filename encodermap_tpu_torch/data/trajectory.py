@@ -2053,21 +2053,44 @@ class TrajEnsemble:
         [traj_num, frame_num] rows of :attr:`id`. Frames whose row is
         all-NaN for any requested CV (ragged ensembles) are skipped.
 
-        ``lazy`` is the JAX package's switch to stream batches from an
-        ensemble h5 file (its ``HDF5BatchSource``, the reference's
-        out-of-core design, ``info_all.py:2870-3078``). The port has no
-        streaming source yet (slice 5): batches come from the CVs in
-        memory, and ``lazy=<path>`` raises ``NotImplementedError``.
+        When the ensemble is backed by an on-disk HDF5 file (after
+        :meth:`save`, or built by ``from_dataset``), batches are sampled
+        straight from the file through slab reads
+        (``train/core.py::HDF5BatchSource``) and the stacked CV arrays are
+        never built in memory, the reference's out-of-core design
+        (``info_all.py:2870-3078``). Pass ``lazy=False`` to iterate in
+        memory, or ``lazy=<path>`` to stream from a given ensemble h5. A
+        file that is gone (or lacks the CVs) falls back to memory.
         """
         if CV_names is None:
             CV_names = list(self._BATCH_ITER_DEFAULT_CVS)
         single = len(CV_names) == 1
         if seed is None and deterministic:
             seed = start
-        if isinstance(lazy, (str, Path)):
-            raise NotImplementedError(
-                "streaming batches from an ensemble h5 is a later slice of "
-                "the port; load the CVs and pass lazy=False")
+        path = (str(lazy) if isinstance(lazy, (str, Path))
+                else (self._source_h5 if lazy is not False else None))
+        if path is not None:
+            src = None
+            try:
+                from ..train.core import HDF5BatchSource
+
+                # a resident slab of ~64k frames: one sequential read per
+                # ~64k / batch_size batches; seed=None keeps OS entropy
+                # like the in-memory path
+                k = max(1, 65536 // max(1, batch_size))
+                src = HDF5BatchSource(path, CV_names, batch_size, steps_per_scan=k,
+                                      seed=seed, replace=replace, skip_all_nan=True)
+            except (KeyError, OSError):
+                # CVs not on disk, or the file moved or deleted: memory
+                src = None
+            if src is not None:
+                ids = None
+                if yield_index:
+                    # the source concatenates traj_N groups sorted by
+                    # traj_num; self.id follows the ensemble's list order
+                    members = sorted(self.trajs, key=lambda t: t.traj_num or 0)
+                    ids = np.concatenate([np.atleast_1d(t.id) for t in members], axis=0)
+                return self._lazy_batches(src, single, yield_index, ids)
         cvs = self.CVs
         arrays = [cvs[name] for name in CV_names]
         ids = self.id
@@ -2095,6 +2118,24 @@ class TrajEnsemble:
                 yield (ids[idx], batch) if yield_index else batch
 
         return gen()
+
+    @staticmethod
+    def _lazy_batches(src, single: bool = False, yield_index: bool = False,
+                      ids=None) -> Iterator[Any]:
+        """Batches of an HDF5 source's superbatches, one step at a time;
+        the file closes with the generator."""
+        try:
+            for superbatch in src:
+                rows = src.last_indices if yield_index else None
+                for i in range(superbatch[0].shape[0]):
+                    out = tuple(a[i] for a in superbatch)
+                    batch = out[0] if single else out
+                    if yield_index:
+                        yield ids[rows[i]], batch
+                    else:
+                        yield batch
+        finally:
+            src.close()
 
     def tf_dataset(
         self,

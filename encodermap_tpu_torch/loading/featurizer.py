@@ -20,7 +20,8 @@ atoms the features read is uploaded.
 Counterpart of ``encodermap_tpu/loading/featurizer.py``: the same adders,
 labels and NaN-padded ensemble alignment; ``jax.jit`` of the block becomes
 eager PyTorch, and the minimum-image choice a plain flag per trajectory.
-The multi-device path (``parallel/sharded_featurize.py``) is a later slice.
+The multi-process path, frame blocks split over the ranks of a run, is
+``parallel/sharded_featurize.py``.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@
 Counterpart of ``encodermap_tpu/misc/summaries.py::MetricsWriter``, JSONL
 only: one ``{"step": ..., "<metric>": ...}`` row per written step in
 ``main_path/train_metrics.jsonl``, the same rows the JAX package writes.
-TensorBoard output is not ported yet.
+In a multi-process run only rank 0 writes (every rank computes the same
+global metrics). TensorBoard output is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,10 +28,14 @@ class MetricsWriter:
             raise NotImplementedError(
                 "TensorBoard output is not ported to encodermap_tpu_torch yet; "
                 "set tensorboard=False (metrics still go to the JSONL log)")
+        from ..parallel.distributed import is_primary
+
         self.main_path = Path(main_path)
         self.path = self.main_path / filename
-        self.main_path.mkdir(parents=True, exist_ok=True)
-        self._fh = open(self.path, "a")
+        self._fh = None
+        if is_primary():
+            self.main_path.mkdir(parents=True, exist_ok=True)
+            self._fh = open(self.path, "a")
 
     def write_scalars(self, step: int, scalars: dict[str, Any]) -> None:
         """Append one row for ``step``."""

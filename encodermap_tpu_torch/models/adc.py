@@ -27,7 +27,7 @@ the sidechain backmap of ``ops/backmap_sidechains.py``.
 from __future__ import annotations
 
 from math import pi
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -313,7 +313,7 @@ def cartesian_pwd_matrix(p: ADCParameters, cartesians: torch.Tensor
 
 
 def forward(params: dict, p: ADCParameters, inputs: tuple, shapes: ADCShapes,
-            with_pairs: bool = True) -> tuple:
+            with_pairs: bool = True, gather: Optional[Callable] = None) -> tuple:
     """The ADC forward pass.
 
     Args:
@@ -322,6 +322,9 @@ def forward(params: dict, p: ADCParameters, inputs: tuple, shapes: ADCShapes,
         with_pairs: also compute the flat pair distances of the input and
             backmapped slices (the reference's model outputs); the trainer's
             losses read the coordinates instead and pass False.
+        gather: in a data-parallel step, the function that gathers every
+            rank's rows: the batch means of MeanAngles and of the backmap's
+            bond lengths are the global batch's.
 
     Returns:
         (out_angles, out_dihedrals, out_side_dihedrals or None,
@@ -332,15 +335,16 @@ def forward(params: dict, p: ADCParameters, inputs: tuple, shapes: ADCShapes,
     decoded = decode(params, p, latent, shapes)
     out_angles, out_dihedrals, out_side = decoded[:3]
     if not p.use_backbone_angles:
-        # MeanAngles (layers.py:1152-1160)
-        out_angles = torch.mean(angles, dim=0, keepdim=True).expand(angles.shape)
+        # MeanAngles (layers.py:1152-1160), over the global batch
+        rows = gather(angles) if gather is not None else angles
+        out_angles = torch.mean(rows, dim=0, keepdim=True).expand(angles.shape)
     if p.multimer_training is not None:
         # each protein rebuilt on its own, proteins 2..N placed by the
         # decoded transforms (models.py:946-953)
         back = backmap_multimer(multimer_lengths_list(p), distances, out_angles,
-                                out_dihedrals, decoded[3])
+                                out_dihedrals, decoded[3], gather)
     else:
-        back = backmap_op(distances, out_angles, out_dihedrals)
+        back = backmap_op(distances, out_angles, out_dihedrals, gather)
     inp_pair = out_pair = None
     if with_pairs:
         inp_pair = cartesian_pwd_slice(p, cartesians)

@@ -36,7 +36,7 @@ port takes the forms the JAX package takes on the CPU. Quaternions are
 from __future__ import annotations
 
 from math import pi
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -256,7 +256,7 @@ def dihedrals_to_cartesian(dihedrals: torch.Tensor, cartesians: torch.Tensor
 
 
 def backmap(distances: torch.Tensor, angles: torch.Tensor,
-            dihedrals: torch.Tensor) -> torch.Tensor:
+            dihedrals: torch.Tensor, gather: Optional[Callable] = None) -> torch.Tensor:
     """The BackMapLayer (reference ``models/layers.py:913-987``): the batch
     mean of the RAW bond lengths (the reference's negative-distance guard
     never reaches its mean), ``chain_in_plane``, then ``dihedrals + pi``
@@ -266,6 +266,8 @@ def backmap(distances: torch.Tensor, angles: torch.Tensor,
         distances: ``(batch, n_atoms - 1)``.
         angles: ``(batch, n_atoms - 2)``.
         dihedrals: ``(batch, n_atoms - 3)``.
+        gather: in a data-parallel step, the function that gathers every
+            rank's rows, so the mean is the global batch's.
 
     Returns:
         ``(batch, n_atoms, 3)``.
@@ -280,8 +282,8 @@ def backmap(distances: torch.Tensor, angles: torch.Tensor,
         >>> round(float(torch.linalg.norm(xyz[0, 1] - xyz[0, 0])), 5)
         0.15
     """
-    mean_lengths = torch.mean(distances, dim=0, keepdim=True).expand(
-        angles.shape[0], -1)
+    rows = gather(distances) if gather is not None else distances
+    mean_lengths = torch.mean(rows, dim=0, keepdim=True).expand(angles.shape[0], -1)
     chain = chain_in_plane(mean_lengths, angles)
     return dihedrals_to_cartesian(dihedrals + pi, chain)
 
@@ -385,7 +387,8 @@ def merge_cartesians(central_cartesians: torch.Tensor, N_indices: Sequence[int],
 
 def backmap_multimer(protein_lengths: Sequence[int], distances: torch.Tensor,
                      angles: torch.Tensor, dihedrals: torch.Tensor,
-                     matrices: torch.Tensor) -> torch.Tensor:
+                     matrices: torch.Tensor, gather: Optional[Callable] = None
+                     ) -> torch.Tensor:
     """Backmap a multimer: each protein's chain rebuilt on its own, proteins
     2..N placed by homogeneous transforms (the documented intent of the
     reference's ``BackMapLayerTransformations``, ``models/layers.py:
@@ -399,6 +402,7 @@ def backmap_multimer(protein_lengths: Sequence[int], distances: torch.Tensor,
         dihedrals: ``(B, sum 3L_i - 3)``.
         matrices: ``(B, n_proteins - 1, 4, 4)`` transforms for row vectors,
             ``[xyz, 1] @ M``, applied as a full-float32 product.
+        gather: as :func:`backmap` takes it.
 
     Returns:
         ``(B, sum 3L_i, 3)``.
@@ -408,7 +412,7 @@ def backmap_multimer(protein_lengths: Sequence[int], distances: torch.Tensor,
     for i, L in enumerate(protein_lengths):
         nd, na, ndi = 3 * L - 1, 3 * L - 2, 3 * L - 3
         xyz = backmap(distances[:, d0:d0 + nd], angles[:, a0:a0 + na],
-                      dihedrals[:, di0:di0 + ndi])
+                      dihedrals[:, di0:di0 + ndi], gather)
         if i != 0:
             homo = torch.cat([xyz, torch.ones_like(xyz[..., :1])], dim=-1)
             xyz = (homo @ matrices[:, i - 1])[..., :3]

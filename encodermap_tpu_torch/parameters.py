@@ -266,8 +266,8 @@ class Parameters(ParametersFramework):
     compute_dtype: str = "float32"
     # how many optimizer steps run per trainer call (one chunk)
     steps_per_scan: int = 100
-    # the JAX package's data-parallel mesh; stored here for round-trips,
-    # the port trains on one device (multi-GPU is a later slice)
+    # data parallelism over one process per device, e.g. {"dp": 4}
+    # (parallel/mesh.py); None trains on one device
     mesh_shape: Optional[dict] = None
     # route eligible configs through the fused train kernel
     # (ops/fused_train.py); False forces the general autograd path

@@ -33,8 +33,14 @@ sigmoid-loss kernels: twice forward and twice backward per step.
 ``"mdanalysis"``) rotates a real structure's bonds into the decoded
 dihedrals (``misc/backmapping_offline.py``), on the trainer's device.
 
-Waiting for a later slice (raises ``NotImplementedError``): streaming
-(``train_streaming``, ``from_ensemble_h5``).
+Out-of-core training: ``train_streaming`` takes a batch source of CV
+superbatches or the path of an HDF5 file (a flat ``CVs/`` group or an
+ensemble file written by ``TrajEnsemble.save``), and ``from_ensemble_h5``
+builds a model from a few frames of such a file, so the CVs never live in
+memory whole. With ``p.mesh_shape={"dp": N}`` each rank runs the per-row
+forward (encoder, decoder, backmapping) on its share of the batch and the
+losses see every rank's rows (``Autoencoder._gather_rows``), as in
+``train/autoencoder.py``.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from ..ops.cartesian_analytic import MIN_ANALYTIC_ATOMS
 from ..ops.distances import pairwise_dist
 from ..ops.kabsch import rmsd as rmsd_op
 from ..parameters import ADCParameters
-from .autoencoder import STREAMING_LATER, Autoencoder
+from .autoencoder import Autoencoder
 from .core import tree_map
 
 __all__ = ["AngleDihedralCartesianEncoderMap"]
@@ -182,9 +188,22 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
                          parameters: Optional[ADCParameters] = None,
                          prototype_frames: int = 4, **kwargs: Any
                          ) -> "AngleDihedralCartesianEncoderMap":
-        """A model whose input widths come from an ensemble HDF5 file:
-        streaming, which is slice 4 of the port."""
-        raise NotImplementedError(f"from_ensemble_h5 {STREAMING_LATER}")
+        """A model whose input shapes come from an on-disk ensemble HDF5
+        file (written by ``TrajEnsemble.save``) without loading its CVs:
+        only ``prototype_frames`` frames of each member trajectory are read,
+        for the shapes and the sparse-mode test
+        (``encodermap_tpu/train/adc_autoencoder.py:937-960``). Pair it with
+        ``train_streaming(path)``. Needs ``h5py``."""
+        from .core import HDF5BatchSource
+
+        p = parameters if parameters is not None else ADCParameters()
+        src = HDF5BatchSource(path, _needed_cv_names(p), batch_size=prototype_frames,
+                              steps_per_scan=1, seed=0)
+        try:
+            proto = src.read_prototype(prototype_frames)
+        finally:
+            src.close()
+        return cls(parameters=p, dataset=proto, **kwargs)
 
     # ---------------------------------------------------------------- losses
     def _loss_terms(self, params: dict, batch: tuple, step: int = 0) -> dict:
@@ -204,10 +223,14 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
                 dens_params = dict(params, densifiers=tree_map(
                     torch.Tensor.detach, params["densifiers"]))
             batch = adc.densify_inputs(dens_params, batch)
-        inp_angles, inp_dihedrals, inp_cartesians = batch[:3]
         inp_side = batch[4] if len(batch) == 5 else None
+        gather = (lambda x: self._gather_rows(x)[0]) if self._dp is not None else None
         out_angles, out_dihedrals, out_side, back, _, _, latent = adc.forward(
-            params, p, batch, self.shapes, with_pairs=False)
+            params, p, batch, self.shapes, with_pairs=False, gather=gather)
+        # the losses see the global batch
+        (inp_angles, inp_dihedrals, inp_cartesians, out_angles, out_dihedrals, back,
+         latent, inp_side, out_side) = self._gather_some(
+            *batch[:3], out_angles, out_dihedrals, back, latent, inp_side, out_side)
 
         # the distance and center costs see the raw trained groups
         # (loss_functions.py:279-281)
@@ -262,9 +285,12 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         all four encoder inputs, the JAX package's recorded divergence (the
         reference truncates them to three, ``loss_functions.py:279-281``)."""
         p = self.p
-        inp_ca, inp_cdi, inp_all_cart, _, inp_sa, inp_sdi, _ = batch
         out_ca, out_cdi, out_sa, out_sdi, back, _, _, latent = adc.forward_sidechains(
             params, p, batch, self.shapes, self.sidechain_spec, with_pairs=False)
+        # the losses see the global batch
+        (inp_ca, inp_cdi, inp_all_cart, inp_sa, inp_sdi, out_ca, out_cdi, out_sa,
+         out_sdi, back, latent) = self._gather_some(
+            *batch[:3], *batch[4:6], out_ca, out_cdi, out_sa, out_sdi, back, latent)
         enc_inp = torch.cat([inp_ca, inp_cdi, inp_sa, inp_sdi], dim=1)
         scale = L.soft_start_scale(p, step, device=latent.device)
         idx = torch.as_tensor(adc.sidechain_pwd_indices(p, self.sidechain_spec),
@@ -283,6 +309,11 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
             "cartesian_cost_scale": scale,
         }
         return terms, (back, inp_all_cart)
+
+    def _gather_some(self, *xs: Optional[torch.Tensor]) -> tuple:
+        """:meth:`_gather_rows` of the tensors among ``xs``; None stays."""
+        got = iter(self._gather_rows(*(x for x in xs if x is not None)))
+        return tuple(None if x is None else next(got) for x in xs)
 
     def _metric_io(self, params: dict, batch: tuple) -> tuple:
         """``(y_true, y_pred)`` for metric objects: the (densified) input
@@ -320,6 +351,41 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         # NaNs stay: the densifiers zero-fill them inside the step
         return tuple(torch.as_tensor(d, dtype=torch.float32, device=self.device)
                      for d in self.train_data)
+
+    def train_streaming(self, source: Any, n_steps: Optional[int] = None) -> dict:
+        """Out-of-core ADC training from a host superbatch source (tuples of
+        the 5 or 7 CV stacks, ``(steps, B, ...)`` each), the reference's
+        HDF5-generator streaming (``info_all.py:3080-3154``;
+        ``encodermap_tpu/train/adc_autoencoder.py:477-515``).
+
+        ``source`` may be the path of an HDF5 file, a flat ``CVs/`` group
+        or an ensemble file written by ``TrajEnsemble.save``: batches are
+        then sampled from disk (``HDF5BatchSource``, seeded by ``p.seed``)
+        and the CVs never live in memory whole::
+
+            trajs.load_CVs("all", ensemble=True); trajs.save("ens.h5")
+            emap = AngleDihedralCartesianEncoderMap.from_ensemble_h5("ens.h5", p)
+            emap.train_streaming("ens.h5")
+        """
+        from .core import HDF5BatchSource, run_streaming
+
+        owned = None
+        if isinstance(source, (str, Path)):
+            source = owned = HDF5BatchSource(
+                source, _needed_cv_names(self.p), self.p.batch_size,
+                self.p.steps_per_scan,
+                seed=self.p.seed if self.p.seed is not None else 0)
+        n = self._streaming_budget(n_steps)
+        if n <= 0:
+            if owned is not None:
+                owned.close()
+            return self.history
+        try:
+            history = run_streaming(self, source, n, sharding=self._streaming_sharding())
+        finally:
+            if owned is not None:
+                owned.close()
+        return self._finish_streaming(history)
 
     def set_train_data(self, trajs: Any) -> None:
         """Replace the training data by a CV dict, tuple or ``.CVs`` object

@@ -20,9 +20,22 @@ hooks: ``_loss_and_aux`` (the terms at a global step, plus forward
 intermediates), ``_aux_metric_terms`` (metrics from those intermediates)
 and ``_metrics_only`` (terms logged but not summed into the loss).
 
-Not ported yet: multi-GPU meshes (``mesh_shape``), streaming training,
-TensorBoard output, images, and ``DihedralEncoderMap.generate`` onto a
-topology.
+Out-of-core training: :meth:`Autoencoder.train_streaming` runs
+``train/core.py::run_streaming`` on superbatches from a batch source.
+
+Data parallelism: ``p.mesh_shape={"dp": N}`` trains over N processes, one
+per device (``parallel/mesh.py``). Every rank holds rank 0's parameters and
+takes its ``B/N`` rows of each global batch; the per-row forward runs on
+those rows, and the rows the losses need are gathered across the ranks
+(:meth:`Autoencoder._gather_rows`), so every rank computes the global
+batch's loss, as the JAX package's GSPMD step does. The gradients are
+all-reduced and divided by N (:meth:`Autoencoder._reduce_grads`), which
+keeps the ranks' parameters bit-identical. Each rank keeps the whole
+training set on its device, where the JAX package shards it (ROADMAP.md
+Queue 3). Checkpoints, the metrics log and the progress output come from
+rank 0 only.
+
+Not ported yet: TensorBoard output, images, and ``tp > 1``.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ from ..misc.saving import (
 from ..misc.summaries import MetricsWriter
 from ..models import sequential as seq
 from ..parameters import Parameters
+from ..parallel.distributed import gather_rows, is_primary
 from .callbacks import Callback, CheckpointSaver, NaNInterrupt, ProgressBar
 from .core import (
     TrainState,
@@ -57,11 +71,6 @@ from .core import (
 )
 
 __all__ = ["Autoencoder", "EncoderMap", "DihedralEncoderMap"]
-
-#: what a streaming entry point says: it waits for slice 4 of the port
-STREAMING_LATER = ("(streaming from HDF5) is not ported to encodermap_tpu_torch "
-                   "yet; it is slice 5 of the port (scale-out). Train from "
-                   "in-memory data with train()")
 
 
 def _tree_to_device(tree: Any, device: torch.device) -> Any:
@@ -118,10 +127,13 @@ class Autoencoder:
         """What every trainer sets first: device, parameters, options."""
         self.device = resolve_device(device)
         self.p = p
+        self._mesh = None
+        self._dp = None
         if self.p.mesh_shape:
-            raise NotImplementedError(
-                "mesh_shape (multi-device training) is not ported to "
-                "encodermap_tpu_torch yet; leave it None")
+            from ..parallel.mesh import dp_info, make_mesh
+
+            self._mesh = make_mesh(**dict(self.p.mesh_shape), device=self.device)
+            self._dp = dp_info(self._mesh)
         self._validate_model_api(model_api)
         self._lr_schedule = learning_rate_schedule
         self.read_only = read_only
@@ -131,14 +143,19 @@ class Autoencoder:
     def _init_state(self, model_params: Optional[dict], init_fn) -> None:
         """Write parameters.json, take ``model_params`` (or
         ``init_fn(generator)`` seeded from ``p.seed``) to the device, and
-        build the optimizer and the train state."""
-        if not self.read_only:
+        build the optimizer and the train state. On a mesh every rank takes
+        rank 0's parameters, and only rank 0 writes."""
+        if not self.read_only and is_primary():
             Path(self.p.main_path).mkdir(parents=True, exist_ok=True)
             self.p.save(Path(self.p.main_path) / "parameters.json")
         seed = self.p.seed if self.p.seed is not None else 0
         if model_params is None:
             model_params = init_fn(torch.Generator().manual_seed(int(seed)))
         model_params = _tree_to_device(model_params, self.device)
+        if self._mesh is not None:
+            from ..parallel.mesh import replicate
+
+            replicate(model_params, self._mesh)
         self.optimizer = make_optimizer(
             self._lr_schedule if self._lr_schedule is not None
             else self.p.learning_rate)
@@ -206,8 +223,8 @@ class Autoencoder:
 
     def save(self, step: Optional[int] = None) -> Optional[str]:
         """Checkpoint parameters, Adam state, RNG and step
-        (``autoencoder.py:1197``); nothing when read-only."""
-        if self.read_only:
+        (``autoencoder.py:1197``); nothing when read-only or off rank 0."""
+        if self.read_only or not is_primary():
             return None
         step = self.state.step if step is None else int(step)
         return save_checkpoint(self.p.main_path, self.state.params, step,
@@ -291,18 +308,83 @@ class Autoencoder:
         batch = seq.densify(params, batch)
         return batch, seq.decode(params, self.p, seq.encode(params, self.p, batch))
 
-    def _loss_terms(self, params: dict, batch: torch.Tensor) -> dict:
-        """All loss contributions for one batch; subclasses extend."""
-        p = self.p
+    def _forward_rows(self, params: dict, batch: torch.Tensor) -> tuple:
+        """The per-row forward pass of this rank's rows, then the global
+        batch's ``(densified inputs, latent, reconstruction)``."""
         batch = seq.densify(params, batch)
-        latent = seq.encode(params, p, batch)
-        out = seq.decode(params, p, latent)
+        latent = seq.encode(params, self.p, batch)
+        return self._gather_rows(batch, latent, seq.decode(params, self.p, latent))
+
+    def _row_terms(self, params: dict, batch: torch.Tensor, latent: torch.Tensor,
+                   out: torch.Tensor) -> dict:
+        """The auto, center and L2 losses of the global batch."""
+        p = self.p
         return {
             "auto_loss": L.auto_loss(batch, out, p),
             "center_loss": L.center_loss(latent, p),
             "regularization_loss": L.regularization_loss(
                 seq.regularization_sum(params), p),
         }
+
+    def _loss_terms(self, params: dict, batch: torch.Tensor) -> dict:
+        """All loss contributions for one batch; subclasses extend."""
+        return self._row_terms(params, *self._forward_rows(params, batch))
+
+    # -------------------------------------------------------- data parallel
+    @property
+    def mesh(self):
+        """The ``("dp", "tp")`` mesh of ``p.mesh_shape``; None on one
+        device."""
+        return self._mesh
+
+    def _gather_rows(self, *xs: torch.Tensor) -> tuple:
+        """The global batch's rows of per-row tensors: every dp rank's, in
+        rank order (differentiable); the tensors themselves on one device.
+        The tensors that need a gradient travel as one (their rows side by
+        side, one gather, one reduce-scatter back), the others as another
+        with no backward. A tensor that needed no gradient comes back
+        without one, so the sketch-map loss of plain inputs still takes the
+        kernels."""
+        if self._dp is None:
+            return xs
+        out: list = [None] * len(xs)
+        for needs_grad in (True, False):
+            sel = [i for i, x in enumerate(xs) if x.requires_grad == needs_grad]
+            if not sel:
+                continue
+            rows = gather_rows(torch.cat([xs[i].reshape(len(xs[i]), -1) for i in sel], dim=1),
+                               self._dp[2])
+            parts = torch.split(rows, [int(np.prod(xs[i].shape[1:])) for i in sel], dim=1)
+            for i, o in zip(sel, parts):
+                out[i] = o.reshape((len(rows),) + xs[i].shape[1:])
+        return tuple(out)
+
+    def _reduce_grads(self, grads: list) -> list:
+        """The global gradient on every rank: each rank's gradient of the
+        global loss, summed over the dp group and divided by its size (the
+        gathered rows' backward adds one copy per rank), as one
+        all-reduce."""
+        if self._dp is None:
+            return grads
+        import torch.distributed as dist
+
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self._dp[2])
+        flat /= self._dp[1]
+        out, i = [], 0
+        for g in grads:
+            out.append(flat[i:i + g.numel()].view_as(g))
+            i += g.numel()
+        return out
+
+    def _global_batch(self, batch: Any) -> Any:
+        """The global batch's inputs, for user losses and metrics, which
+        see the whole batch as the JAX package's do."""
+        if self._dp is None:
+            return batch
+        if isinstance(batch, tuple):
+            return self._gather_rows(*batch)
+        return self._gather_rows(batch)[0]
 
     def _make_train_step(self):
         """One optimizer step ``(state, batch) -> (state, metrics)`` by
@@ -313,6 +395,8 @@ class Autoencoder:
                       for t in tree_leaves(state.params)]
             params = tree_unflatten(state.params, leaves)
             terms, aux = self._loss_and_aux(params, batch, state.step)
+            if self.custom_losses or self.custom_metrics:
+                batch = self._global_batch(batch)
             terms.update({name: fn(params, batch)
                           for name, fn in self.custom_losses})
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -321,9 +405,10 @@ class Autoencoder:
                     loss = loss + v
             # a leaf outside the graph (a frozen densifier) gets a zero
             # gradient, as JAX gives it
-            grads = [torch.zeros_like(t) if g is None else g
-                     for t, g in zip(leaves, torch.autograd.grad(
-                         loss, leaves, allow_unused=True))]
+            grads = self._reduce_grads(
+                [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, torch.autograd.grad(
+                     loss, leaves, allow_unused=True))])
             metrics = {k: v.detach() for k, v in terms.items()}
             metrics["loss"] = loss.detach()
             if self._lr_schedule is not None:
@@ -355,7 +440,8 @@ class Autoencoder:
             if trainer is None:
                 trainer = make_scan_trainer(
                     self._make_train_step(), self.p.batch_size, steps,
-                    full_batch=not getattr(self.p, "batched", True))
+                    full_batch=not getattr(self.p, "batched", True),
+                    shard=self._dp[:2] if self._dp is not None else None)
             self._trainer[steps] = trainer
         return self._trainer[steps]
 
@@ -366,10 +452,62 @@ class Autoencoder:
         return torch.as_tensor(data, dtype=torch.float32, device=self.device)
 
     # -------------------------------------------------------------- training
+    def _streaming_sharding(self) -> Optional[tuple[int, int]]:
+        """``(rank, size)`` of the dp axis for the superbatches' batch axis;
+        None without a mesh."""
+        return self._dp[:2] if self._dp is not None else None
+
+    def _streaming_budget(self, n_steps: Optional[int]) -> int:
+        """Steps to run: an explicit ``n_steps`` counts from here; None
+        means ``p.n_steps`` as a global budget, as ``train()`` has it."""
+        if n_steps is not None:
+            return int(n_steps)
+        start = self.state.step
+        remaining = self.p.n_steps - start
+        if remaining <= 0:
+            print(f"This model has already been trained for {start} steps. "
+                  f"Increase p.n_steps to train further.")
+        return remaining
+
+    def _persist(self, nan_stop: bool) -> None:
+        """After a run: parameters.json and a checkpoint at the current
+        step, unless a NaN stopped the run (then the newest checkpoint on
+        disk stays the last finite one)."""
+        if nan_stop:
+            print("Not persisting the diverged state; the newest on-disk "
+                  "checkpoint remains the last finite one.")
+            return
+        self.p.current_training_step = self.state.step
+        if not self.read_only and is_primary():
+            self.p.save(Path(self.p.main_path) / "parameters.json")
+        self.save()
+
+    def _finish_streaming(self, history: dict) -> dict:
+        """Persist after a streaming run (see :meth:`_persist`)."""
+        self.history = history
+        self._persist(getattr(self, "_streaming_nan_stop", False))
+        return history
+
     def train_streaming(self, source: Any, n_steps: Optional[int] = None) -> dict:
-        """Out-of-core training from an HDF5 file or a batch source:
-        slice 4 of the port, not here yet."""
-        raise NotImplementedError(f"train_streaming {STREAMING_LATER}")
+        """Out-of-core training from a host superbatch source, e.g.
+        ``train/core.py::HDF5BatchSource`` (``encodermap_tpu/train/
+        autoencoder.py:694-708``): the million-frame path where the data
+        never lives on the device whole. Each superbatch is a
+        ``(steps, B, features)`` array (or a 1-tuple of one). With
+        ``p.mesh_shape`` set, each rank uploads its share of the batch axis
+        (BASELINE config 5: streaming with data parallelism)."""
+        from .core import run_streaming
+
+        if isinstance(source, (str, Path)):
+            raise TypeError(
+                f"{type(self).__name__}.train_streaming takes a batch source; "
+                f"for an HDF5 file pass HDF5BatchSource(path, [name], "
+                f"batch_size, steps_per_scan)")
+        n = self._streaming_budget(n_steps)
+        if n <= 0:
+            return self.history
+        history = run_streaming(self, source, n, sharding=self._streaming_sharding())
+        return self._finish_streaming(history)
 
     def _setup_callbacks(self) -> list:
         cbs: list = [ProgressBar(self.p.n_steps), NaNInterrupt()]
@@ -453,14 +591,7 @@ class Autoencoder:
         for cb in cbs:
             cb.on_train_end(self)
         self.history = {k: np.concatenate(v) for k, v in history.items()}
-        if nan_stop:
-            print("Not persisting the diverged state; the newest on-disk "
-                  "checkpoint remains the last finite one.")
-        else:
-            self.p.current_training_step = self.state.step
-            if not self.read_only:
-                self.p.save(Path(self.p.main_path) / "parameters.json")
-                self.save()
+        self._persist(nan_stop)
         self.close()
         self._metrics_writer = None
         return self.history
@@ -503,9 +634,8 @@ class EncoderMap(Autoencoder):
     (reference: ``autoencoder.py:1232-1307``)."""
 
     def _loss_terms(self, params: dict, batch: torch.Tensor) -> dict:
-        terms = super()._loss_terms(params, batch)
-        batch = seq.densify(params, batch)
-        latent = seq.encode(params, self.p, batch)
+        batch, latent, out = self._forward_rows(params, batch)
+        terms = self._row_terms(params, batch, latent, out)
         terms["distance_loss"] = L.distance_loss(batch, latent, self.p)
         return terms
 
@@ -514,11 +644,23 @@ class EncoderMap(Autoencoder):
         batched sampling, no densifier or user extensions, a constant lr,
         EncoderMap's own loss stack, and :func:`fused_trainer_available`
         (parameters on the card, input dim, activations, cost variant,
-        dtype). ``mesh_shape`` is refused at construction, since the port
-        trains on one device."""
+        dtype). A mesh takes the general route, with a warning once, as in
+        the JAX package: the fused kernel is a single-device program."""
         from ..ops.fused_train import fused_trainer_available, make_fused_trainer
 
         if not getattr(self.p, "fused_trainer", True):
+            return None
+        if self.mesh is not None:
+            if not getattr(self, "_warned_fused_mesh", False):
+                self._warned_fused_mesh = True
+                import warnings
+
+                warnings.warn(
+                    "mesh_shape is set: the fused train kernel is "
+                    "single-device and this run takes the general route "
+                    "(the sigmoid-loss kernels on the gathered global batch) "
+                    "instead. Set fused_trainer=False to silence.",
+                    stacklevel=3)
             return None
         if not getattr(self.p, "batched", True):
             return None

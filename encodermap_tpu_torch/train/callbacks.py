@@ -3,7 +3,9 @@
 
 Counterpart of ``encodermap_tpu/train/callbacks.py`` (after the reference's
 Keras callbacks, ``callbacks/callbacks.py``): ProgressBar, CheckpointSaver,
-EarlyStop and NaNInterrupt. ``ImageCallback`` is not ported yet.
+EarlyStop and NaNInterrupt. In a multi-process run the progress output and
+the checkpoints come from rank 0 only (``callbacks.py:94-96`` there).
+``ImageCallback`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from ..parallel.distributed import is_primary
 from .core import tree_map
 
 __all__ = [
@@ -51,8 +54,12 @@ class ProgressBar(Callback):
     def __init__(self, n_steps: int) -> None:
         self.n_steps = n_steps
         self._bar = None
+        self._quiet = False
 
     def on_train_begin(self, autoencoder: Any) -> None:
+        self._quiet = not is_primary()
+        if self._quiet:
+            return
         try:
             from tqdm import tqdm  # type: ignore
 
@@ -61,6 +68,8 @@ class ProgressBar(Callback):
             self._bar = None
 
     def on_chunk_end(self, first_step: int, metrics: dict) -> None:
+        if self._quiet:
+            return
         n = len(next(iter(metrics.values())))
         loss = float(np.asarray(metrics.get("loss", [np.nan])[-1]))
         if self._bar is not None:

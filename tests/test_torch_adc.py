@@ -270,8 +270,9 @@ def test_frozen_densifiers_stay_put(tmp_path):
 
 
 def test_entry_points_refuse_what_waits_for_later_slices(tmp_path):
-    """Without a card the default device raises; streaming (slice 5)
-    raises ``NotImplementedError``; sidechain reconstruction and multimer
+    """Without a card the default device raises; streaming from a file
+    that is not there raises h5py's error (nothing falls back to memory);
+    sidechain reconstruction and multimer
     training construct, and combine with sparse CVs or with each other
     only to raise the JAX package's ``ValueError``."""
     from encodermap_tpu_torch.ops.backmap import backmap_multimer
@@ -283,9 +284,9 @@ def test_entry_points_refuse_what_waits_for_later_slices(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             emt.AngleDihedralCartesianEncoderMap(data, p)
     et = emt.AngleDihedralCartesianEncoderMap(data, p, device="cpu", read_only=True)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(OSError):
         et.train_streaming(str(tmp_path / "ens.h5"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(OSError):
         emt.AngleDihedralCartesianEncoderMap.from_ensemble_h5(str(tmp_path / "ens.h5"), p)
 
     # sidechain reconstruction: seven CVs of a 5-residue chain

@@ -6,8 +6,9 @@ The metric classes take the JAX package's arguments (compared with
 ``inspect.signature``: names, kinds and defaults), and each is called once
 against its JAX counterpart: ``rmsd_numpy`` to 1e-5 nm on both values of
 ``translate``, the step-mismatch check, ``get_config``/``from_config``, and
-the empty bases. Streaming is slice 5 of the port: ``train_streaming``
-raises ``NotImplementedError`` on every trainer and says so.
+the empty bases. ``train_streaming`` runs on every trainer from a batch
+source (its parity with the JAX package is in ``test_torch_streaming.py``)
+and refuses a bare path, which only the ADC reads itself.
 """
 
 import inspect
@@ -87,7 +88,11 @@ def test_config_round_trip_matches_jax():
 def test_train_streaming_waits_for_slice_4(tmp_path):
     data = np.random.default_rng(0).random((64, 3)).astype(np.float32)
     for cls in (emt.Autoencoder, emt.EncoderMap, emt.DihedralEncoderMap):
-        emap = cls(emt.Parameters(main_path=str(tmp_path), n_neurons=[8, 8, 2]), data,
-                   read_only=True, device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 5"):
+        emap = cls(emt.Parameters(main_path=str(tmp_path), n_neurons=[8, 8, 2],
+                                  batch_size=8), data, read_only=True, device="cpu")
+        with pytest.raises(TypeError, match="HDF5BatchSource"):
             emap.train_streaming(str(tmp_path / "data.h5"))
+        superbatches = [data[:24].reshape(3, 8, 3), data[24:48].reshape(3, 8, 3)]
+        hist = emap.train_streaming(iter(superbatches), n_steps=5)
+        assert len(hist["loss"]) == 5 and np.isfinite(hist["loss"]).all()
+        assert emap.state.step == 5

@@ -31,7 +31,12 @@ The data layer: featurization of a synthetic peptide on the card against
 the CPU (distances and Cartesians 1e-6 nm, angles and dihedrals 1e-5 rad,
 dihedrals modulo 2 pi), the minimum image in orthorhombic and triclinic
 boxes likewise, and the rotation sweep of ``backmap_topology`` on the card
-against the CPU to 1e-4 nm."""
+against the CPU to 1e-4 nm.
+
+Streaming: ``train_streaming`` on the card equals the in-memory chunk
+trainer fed the same batches bit for bit, and its uploads come from pinned
+memory on a stream of their own; ``ShardedFeaturizer`` on one NCCL rank
+equals the plain featurizer bit for bit."""
 
 import math
 
@@ -552,3 +557,85 @@ def test_dihedral_rotate_on_card_matches_cpu(cuda):
                             device=dev) for dev in ("cuda", "cpu")]
     assert out[0].shape == (64, top.n_atoms, 3)
     assert float(np.abs(out[0] - out[1]).max()) <= 1e-4
+
+
+# ------------------------------------------------------------ slice 5
+def test_streaming_on_card_equals_the_chunk_trainer(cuda, tmp_path):
+    """``train_streaming`` (pinned uploads on the side stream, prefetch
+    threads) against the in-memory chunk trainer fed the same batches as
+    injected indices: the same step on the same values, bit for bit."""
+    import encodermap_tpu_torch as emt
+
+    rng = np.random.default_rng(0)
+    sbs = [rng.standard_normal((4, 64, 6)).astype(np.float32) for _ in range(3)]
+    kw = dict(n_neurons=[32, 32, 2], batch_size=64, steps_per_scan=4, n_steps=12, seed=1,
+              periodicity=float("inf"), fused_trainer=False)
+    a = emt.EncoderMap(emt.Parameters(main_path=str(tmp_path / "a"), **kw), sbs[0][0])
+    b = emt.EncoderMap(emt.Parameters(main_path=str(tmp_path / "b"), **kw),
+                       np.concatenate([s.reshape(-1, 6) for s in sbs]),
+                       model_params=_leaves_tree(a))
+    ha = a.train_streaming(iter(sbs))
+    hb = b.train(index_stream=iter(np.arange(768).reshape(3, 4, 64)))
+    np.testing.assert_array_equal(ha["loss"], hb["loss"])
+    for x, y in zip(_leaves(a.state.params), _leaves(b.state.params)):
+        assert torch.equal(x, y)
+
+
+def _leaves_tree(model):
+    from encodermap_tpu_torch.train.core import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy(), model.state.params)
+
+
+def test_pinned_upload_runs_on_a_side_stream(cuda):
+    """A put from a worker thread copies from pinned memory on the
+    uploader's own stream; the consumer's stream waits on its event."""
+    import threading
+
+    from encodermap_tpu_torch.train.core import PinnedUploader
+
+    put = PinnedUploader(cuda)
+    x = np.random.default_rng(1).standard_normal((8, 32, 6)).astype(np.float32)
+    got = {}
+
+    def worker():
+        got["up"] = put(x)
+        got["stream"] = torch.cuda.current_stream()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    up = got["up"]
+    assert put.stream != torch.cuda.current_stream() and got["stream"] != put.stream
+    ring = next(iter(put._rings.values()))["slots"]
+    assert all(slot[0].is_pinned() for slot in ring)
+    assert up.event is not None and put.copies == 1
+    np.testing.assert_array_equal(up.ready().cpu().numpy(), x)
+
+
+def test_sharded_featurizer_on_one_nccl_rank_equals_plain(cuda, tmp_path):
+    import torch.distributed as dist
+
+    import encodermap_tpu_torch as emt
+    from encodermap_tpu_torch import parallel
+    from encodermap_tpu_torch.loading.featurizer import SingleTrajFeaturizer
+    from encodermap_tpu_torch.parallel.sharded_featurize import ShardedFeaturizer
+
+    xtc, pdb = _peptide_files(tmp_path, n_frames=20)
+    traj = emt.load(xtc, pdb)
+    parallel.initialize(init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        with pytest.raises(ValueError, match="gloo"):  # no CPU mesh on an NCCL group
+            parallel.make_mesh(dp=1, device="cpu")
+        mesh = parallel.make_mesh(dp=1)
+        sharded = ShardedFeaturizer(traj, mesh=mesh, block_size=8)
+        sharded.add_list_of_feats("all")
+        plain = SingleTrajFeaturizer(traj, block_size=8)
+        plain.add_list_of_feats("all")
+        a, b = sharded.get_output(), plain.get_output()
+        for k in b.keys():
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    finally:
+        dist.destroy_process_group()

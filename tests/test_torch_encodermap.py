@@ -208,9 +208,13 @@ def test_dihedral_generate_and_gaps(tmp_path):
     assert float(np.abs((got - out + np.pi) % (2 * np.pi) - np.pi).max()) <= 1e-3
     with pytest.raises(NotImplementedError):
         MetricsWriter(tmp_path, tensorboard=True)
-    with pytest.raises(NotImplementedError):
+    # a mesh needs one process per device; the tensor-parallel axis waits
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         emt.EncoderMap(emt.Parameters(main_path=str(tmp_path), mesh_shape={"dp": 2}),
                        data, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        emt.EncoderMap(emt.Parameters(main_path=str(tmp_path),
+                                      mesh_shape={"dp": 1, "tp": 2}), data, device="cpu")
 
 
 def test_default_device_is_cuda_and_raises_without_it(tmp_path):
