@@ -203,3 +203,64 @@ __device__ __forceinline__ void sig_y(const SideSig& s, float (&x)[NP], float (&
     }
   }
 }
+
+// t -> s = 1 - u^e in place, u = 1 + c t, without the cancellation of
+// 1 - u^e where c t is small: e = -n as c t (u^-1 + ... + u^-n), and
+// e = -(n + 1/2) adds u^-n (1 - u^-1/2) = u^-n c t u^-1/2 / (1 + u^1/2);
+// other e as 1 - powf(u, e). Also y = u^e and iu = 1/u. The fused train
+// kernel takes this form: with sig_y's 1 - y, the 2-ulp error of y = u^e
+// near 1 (rsqrtf), of one sign on every pair, moved its parameters 500
+// times further from a float64 run in 100 steps than the plain version's
+// 1 - powf (an H100, [128,128,2], B=256, chip_smoke.py's float64 rule).
+template <int NP>
+__device__ __forceinline__ void sig_s(const SideSig& s, float (&x)[NP], float (&y)[NP],
+                                      float (&iu)[NP]) {
+  float ct[NP], sum[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) ct[p] = s.c * x[p];
+  if (s.e_kind == kPowf) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      y[p] = powf(1.f + ct[p], s.e);
+      iu[p] = rcp_approx(1.f + ct[p]);
+      x[p] = 1.f - y[p];
+    }
+    return;
+  }
+  // x <- u^-1/2 where e = -(n + 1/2)
+  if (s.e_kind == kNegHalf) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      x[p] = rsqrtf(1.f + ct[p]);
+      iu[p] = x[p] * x[p];
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) iu[p] = rcp_approx(1.f + ct[p]);
+  }
+  // sum_{k=1..n} u^-k and y = u^-n
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    sum[p] = 0.f;
+    y[p] = 1.f;
+  }
+  for (int k = 0; k < s.e_n; ++k) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      y[p] *= iu[p];
+      sum[p] += y[p];
+    }
+  }
+  if (s.e_kind == kNegHalf) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float rs = x[p];
+      const float h = rs * rcp_approx(1.f + (1.f + ct[p]) * rs);  // (1 - u^-1/2) / (c t)
+      x[p] = ct[p] * (sum[p] + y[p] * h);
+      y[p] *= rs;
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) x[p] = ct[p] * sum[p];
+  }
+}

@@ -11,11 +11,14 @@ B x B pairs; min-image where periodic), the hand-derived backward pass of
 - ``csrc/fused_train_cluster.cu``: one thread-block cluster of
   :data:`CLUSTER` CTAs with the batch rows split across them and the
   activations in shared memory;
-- ``csrc/fused_train.cu``: one cooperative launch over the whole card, for
-  the shapes whose per-CTA footprint (:func:`cluster_footprint`) exceeds the
-  227 KB of shared memory a block may use.
+- ``csrc/fused_train.cu``: one cooperative launch over the whole card: the
+  batch in row groups of :data:`GRID_CLUSTER`-CTA clusters, tiled
+  products, four grid-wide barriers a step (:func:`grid_plan` sizes it).
 
-:func:`fused_route` picks one by shape before the launch. Their plain
+:func:`fused_route` picks one by shape before the launch: the grid kernel
+from :data:`GRID_MIN_BATCH` rows on, and wherever the cluster kernel's
+per-CTA footprint (:func:`cluster_footprint`) exceeds the 227 KB of shared
+memory a block may use. Their plain
 version is :func:`fused_chunk_plain`: :func:`hand_step` plus
 :func:`_adam_update`, looped over the steps. :func:`fused_chunk` launches a
 kernel for CUDA tensors and runs the plain version only for CPU tensors.
@@ -43,6 +46,8 @@ __all__ = [
     "config_covered",
     "cluster_footprint",
     "fused_route",
+    "grid_plan",
+    "grid_launch_plan",
     "split_params",
     "join_params",
     "make_fused_trainer",
@@ -52,9 +57,9 @@ _LIB = "fused_train"
 _CLUSTER_LIB = "fused_train_cluster"
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _build.register(_LIB, [
-    ("em_fused_train_workspace", [_I, _I, _P, _I, _I], ctypes.c_longlong),
+    ("em_fused_train_max_clusters", [_I, _P]),
     ("em_fused_train", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _D, _P,
-                        _P, _P, _P]),
+                        _P, _P, _P, _P, _P]),
 ])
 _build.register(_CLUSTER_LIB, [
     ("em_fused_train_cluster", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
@@ -75,6 +80,26 @@ CLUSTER_PHASES = ("gather", "stage weights", "forward", "wait: losses",
                   "backward: partial", "wait: reduce", "reduce + Adam",
                   "wait: update")
 _THREADS, _METRICS = 256, 4
+#: phases of the grid kernel's cycle trace (``Phase`` in its source)
+GRID_PHASES = ("gather", "forward", "losses", "wait: latents", "pairs",
+               "wait: pair slots", "pair gradients", "backward",
+               "wait: gradients", "Adam", "wait: update")
+#: batch from which :func:`fused_route` takes the grid kernel where the
+#: cluster kernel could run too: on the H100 the grid kernel's step is
+#: nearly flat in the batch (latency and barriers), the cluster kernel's
+#: grows with its rows per CTA. At [128,128,2] the grid kernel took 99.3
+#: against 121.7 us a step at B=288 and 98.8 against 95.6 at B=256; at
+#: [64,64,2] 68.2 against 70.0 at B=256, which one threshold leaves to the
+#: cluster kernel (PERF.md, ``scripts/fused_chunk_time.py``)
+GRID_MIN_BATCH = 288
+#: CTAs per row group of the grid kernel, ``kCluster`` in its source (the
+#: kernel refuses a plan made with other tile constants than its own)
+GRID_CLUSTER = 8
+#: output tile edge of the grid kernel's products (``kTile``): a row
+#: group's rows are a whole number of tiles
+GRID_TILE = 32
+#: pair tile edge of the grid kernel's sketch-map phase (``kPair``)
+PAIR_TILE = 64
 
 METRIC_NAMES = ("auto_loss", "center_loss", "regularization_loss",
                 "distance_loss", "loss")
@@ -336,12 +361,90 @@ def cluster_footprint(dims: list, n_enc: int, B: int, d0: int) -> dict:
     return out
 
 
+def grid_plan(dims: list, n_enc: int, B: int, d0: int,
+              max_clusters: int) -> dict:
+    """How the grid kernel (``csrc/fused_train.cu``) cuts a step: the batch
+    in ``groups`` row groups of ``rows`` rows (a whole number of
+    :data:`GRID_TILE`-row tiles, the last group ragged), each one cluster
+    of :data:`GRID_CLUSTER` CTAs, as many groups as the tiles give up to the
+    ``max_clusters`` the card holds at once; ``pair_tiles`` tiles of
+    :data:`PAIR_TILE` x :data:`PAIR_TILE` pairs over the upper triangle;
+    and its global scratch by item in floats, in the order the items lie
+    in scratch, with their ``"total"``. The kernel takes the groups, the
+    rows and the items' sizes from this plan (:func:`_plan_array`).
+    ``dims = [d_in, widths of the L layers]``."""
+    if len(dims) - 1 > MAX_LAYERS:
+        raise ValueError(f"{len(dims) - 1} layers exceed the kernels' layer "
+                         f"table of {MAX_LAYERS}")
+    if max_clusters < 1:
+        raise ValueError("the card holds no cluster of the grid kernel")
+    tiles = -(-B // GRID_TILE)
+    per = -(-tiles // max_clusters)       # tiles per group
+    groups = -(-tiles // per)
+    rows = GRID_TILE * -(-tiles // groups)
+    dl = dims[n_enc]
+    ctas = groups * GRID_CLUSTER
+    nt = -(-B // PAIR_TILE)
+    n_params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    floats = dict(
+        batch=B * d0,                    # the raw rows
+        activations=B * sum(dims),       # every layer's input and output
+        deltas=2 * groups * rows * max(dims),  # this layer's and the next
+        pair_grad=B * dl,                # the sketch-map latent gradient
+        pair_slots=nt * dl * B,          # per row and partner tile
+        partials=2 * ctas * _METRICS,    # metric sums per CTA, two steps
+        grad_slots=groups * n_params,    # weight gradients per row group
+    )
+    floats["total"] = sum(floats.values())
+    return dict(cluster=GRID_CLUSTER, groups=groups, rows=rows, ctas=ctas,
+                tile=GRID_TILE, pair_tile=PAIR_TILE,
+                pair_tiles=nt * (nt + 1) // 2, floats=floats)
+
+
+def _plan_array(plan: dict):
+    """The plan as the grid kernel's C entry takes it (``Plan`` in its
+    source): groups, rows, the tile constants, the scratch items' sizes."""
+    items = [v for k, v in plan["floats"].items() if k != "total"]
+    return (ctypes.c_longlong * (5 + len(items)))(
+        plan["groups"], plan["rows"], GRID_CLUSTER, GRID_TILE, PAIR_TILE, *items)
+
+
+_max_clusters: dict = {}
+
+
+def _grid_clusters(lib, periodic: bool) -> int:
+    """Clusters of the grid kernel the card holds at once (cached)."""
+    if periodic not in _max_clusters:
+        out = ctypes.c_int(0)
+        _build.check_cuda(lib, lib.em_fused_train_max_clusters(
+            int(periodic), ctypes.byref(out)), "fused_train occupancy")
+        _max_clusters[periodic] = out.value
+    return _max_clusters[periodic]
+
+
 def fused_route(dims: list, n_enc: int, B: int, d0: int) -> str:
-    """The kernel that trains this shape: ``"fused_train_cluster"`` where
-    one CTA's :func:`cluster_footprint` fits in :data:`MAX_SMEM_BYTES`,
-    else ``"fused_train"``. Raises past the layer table."""
+    """The kernel that trains this shape: ``"fused_train_cluster"`` below
+    :data:`GRID_MIN_BATCH` rows where one CTA's :func:`cluster_footprint`
+    fits in :data:`MAX_SMEM_BYTES`, else ``"fused_train"``. Raises past
+    the layer table."""
     fits = cluster_footprint(dims, n_enc, B, d0)["total"] <= MAX_SMEM_BYTES
-    return _CLUSTER_LIB if fits else _LIB
+    return _CLUSTER_LIB if fits and B < GRID_MIN_BATCH else _LIB
+
+
+def grid_launch_plan(dims: list, n_enc: int, B: int, d0: int,
+                     periodic: bool) -> dict:
+    """:func:`grid_plan` with the clusters this card holds (builds the
+    grid kernel first if needed)."""
+    lib = _build.load_library(_LIB)
+    return grid_plan(dims, n_enc, B, d0, _grid_clusters(lib, periodic))
+
+
+def _check_clocks(clocks: Optional[torch.Tensor], shape: tuple,
+                  device: torch.device) -> None:
+    if clocks is not None and (clocks.dtype != torch.int64
+                               or tuple(clocks.shape) != shape
+                               or clocks.device != device):
+        raise ValueError(f"clocks must be an int64 {shape} tensor on {device}")
 
 
 def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
@@ -361,9 +464,11 @@ def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
         kernel: ``"fused_train_cluster"`` or ``"fused_train"``; by default
             :func:`fused_route` picks one by shape. A cluster kernel that
             does not fit raises.
-        clocks: a ``(CLUSTER, len(CLUSTER_PHASES))`` int64 tensor on the
-            device that receives the cluster kernel's cycles per phase,
-            summed over the steps, as thread 0 of each CTA sees them.
+        clocks: an int64 tensor on the device that receives the kernel's
+            cycles per phase, summed over the steps, as thread 0 of each
+            CTA sees them: ``(CLUSTER, len(CLUSTER_PHASES))`` for the
+            cluster kernel, ``(ctas, len(GRID_PHASES))`` for the grid
+            kernel, ``ctas`` from :func:`grid_launch_plan`.
 
     Returns:
         ``(params_flat, mu_flat, nu_flat, metrics (steps, 5))``.
@@ -418,21 +523,18 @@ def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
             raise ValueError(f"B={B} at widths {dims} needs {need} bytes of "
                              f"shared memory per CTA of a {CLUSTER}-CTA "
                              f"cluster; a block may use {MAX_SMEM_BYTES}")
-        shape = (CLUSTER, len(CLUSTER_PHASES))
-        if clocks is not None and (clocks.dtype != torch.int64
-                                   or tuple(clocks.shape) != shape
-                                   or clocks.device != data.device):
-            raise ValueError(f"clocks must be an int64 {shape} tensor on "
-                             f"{data.device}")
+        _check_clocks(clocks, (CLUSTER, len(CLUSTER_PHASES)), data.device)
         err = lib.em_fused_train_cluster(
             *args, None if clocks is None else clocks.data_ptr(),
             _build.stream_ptr())
     else:
-        ws = lib.em_fused_train_workspace(n_enc, n_dec, dims_c, B, d0)
-        if ws < 0:
-            raise ValueError(f"{n_w} layers exceed the kernel's layer table")
-        scratch = torch.empty(ws, dtype=torch.float32, device=data.device)
-        err = lib.em_fused_train(*args, scratch.data_ptr(), _build.stream_ptr())
+        plan = grid_plan(dims, n_enc, B, d0, _grid_clusters(lib, periodic))
+        _check_clocks(clocks, (plan["ctas"], len(GRID_PHASES)), data.device)
+        scratch = torch.empty(plan["floats"]["total"], dtype=torch.float32,
+                              device=data.device)
+        err = lib.em_fused_train(
+            *args, scratch.data_ptr(), _plan_array(plan),
+            None if clocks is None else clocks.data_ptr(), _build.stream_ptr())
     _build.launch_counts[route] += 1
     _build.check_cuda(lib, err, f"{route} launch")
     return (_unpack(params, params_flat), _unpack(mu, mu_flat),

@@ -188,15 +188,29 @@ def _fused_case(cuda, n_neurons, d0, B, periodic, steps, n_data=500):
 @pytest.mark.parametrize("kernel", ["fused_train_cluster", "fused_train"])
 @pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
 @pytest.mark.parametrize("n_neurons,d0,B", [([32, 16, 2], 3, 50),
-                                            ([16, 12, 10], 11, 300)],
-                         ids=["2-d latent", "10-d latent"])
+                                            ([16, 12, 10], 11, 300),
+                                            ([144, 144, 2], 3, 256),
+                                            ([128, 128, 2], 3, 4096),
+                                            ([128, 128, 2], 32, 512)],
+                         ids=["2-d latent", "10-d latent", "144 wide", "B=4096", "d0=32"])
 def test_fused_train_kernel_matches_plain(cuda, periodic, n_neurons, d0, B, kernel):
-    """Ragged batch sizes (50 and 300 rows over the cluster's CTAs), a
-    latent wider than the kernels' 8-component pass, and input widths 3,
-    6, 11 and 22 (periodic d0=11)."""
+    """Ragged batch sizes (50 and 300 rows over the cluster's CTAs, the grid
+    kernel's 32-row tiles), a latent wider than the kernels' 8-component
+    pass, and input widths 3, 6, 11 and 22 (periodic d0=11); then shapes
+    only the grid kernel takes (width 144 at B=256, [128,128,2] at
+    B=4096: 26 row groups, and at the gate's widest input, d0=32, 64
+    sin/cos columns when periodic), where the cluster kernel refuses to
+    launch."""
     from encodermap_tpu_torch.ops import fused_train as ft
 
-    flat, z, data, idx, kw = _fused_case(cuda, n_neurons, d0, B, periodic, 5)
+    flat, z, data, idx, kw = _fused_case(cuda, n_neurons, d0, B, periodic, 5,
+                                         n_data=500 if B <= 500 else 5000)
+    dims = [flat[0].shape[0]] + [w.shape[1] for w in flat[:len(flat) // 2]]
+    if (kernel == "fused_train_cluster"
+            and ft.cluster_footprint(dims, kw["n_enc"], B, d0)["total"] > ft.MAX_SMEM_BYTES):
+        with pytest.raises(ValueError, match="shared memory"):
+            ft.fused_chunk(flat, z, z, 3.0, data, idx, kernel=kernel, **kw)
+        return
     kp, km, kv, kmet = ft.fused_chunk(flat, z, z, 3.0, data, idx, kernel=kernel, **kw)
     pp, pm, pv, pmet = ft.fused_chunk_plain(flat, z, z, 3.0, data, idx, **kw)
     for a, b in zip(kp, pp):
@@ -211,12 +225,14 @@ def test_fused_train_kernel_matches_plain(cuda, periodic, n_neurons, d0, B, kern
 
 def test_fused_router_takes_the_kernel_the_shape_fits(cuda):
     """[128,128,2] at B=256 fits one cluster CTA's shared memory and takes
-    the cluster kernel; B=1024 does not and takes the grid kernel, which
-    still matches its plain version there."""
+    the cluster kernel; at B=288 it still fits, but the grid kernel is the
+    faster one there (GRID_MIN_BATCH) and takes it, as it takes B=1024,
+    which the cluster cannot hold; each matches its plain version."""
     from encodermap_tpu_torch.ops import _build
     from encodermap_tpu_torch.ops import fused_train as ft
 
-    for B, kernel in ((256, "fused_train_cluster"), (1024, "fused_train")):
+    for B, kernel in ((256, "fused_train_cluster"), (288, "fused_train"),
+                      (1024, "fused_train")):
         flat, z, data, idx, kw = _fused_case(cuda, [128, 128, 2], 3, B, False, 3,
                                              n_data=5000)
         before = dict(_build.launch_counts)
@@ -248,20 +264,64 @@ def test_cluster_kernel_is_bit_reproducible(cuda, periodic):
         assert torch.equal(a, b)
 
 
-def test_encodermap_trains_through_fused_kernel(cuda, tmp_path):
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+def test_grid_kernel_is_bit_reproducible(cuda, periodic):
+    """The grid kernel takes every sum in a fixed order too (tile order,
+    group order, CTA order; no float atomics), so 20 steps at B=1024 (16
+    row groups) give the same bits twice."""
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    flat, z, data, idx, kw = _fused_case(cuda, [128, 128, 2], 4 if periodic else 3,
+                                         1024, periodic, 20, n_data=5000)
+    first = ft.fused_chunk(flat, z, z, 0.0, data, idx, kernel="fused_train", **kw)
+    second = ft.fused_chunk(flat, z, z, 0.0, data, idx, kernel="fused_train", **kw)
+    for a, b in zip(first[0] + first[1] + first[2] + [first[3]],
+                    second[0] + second[1] + second[2] + [second[3]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+def test_grid_kernel_at_the_widest_input(cuda, periodic):
+    """The gate's widest input (d0=32, 64 sin/cos columns when periodic) at
+    B=512, over 5 steps, also held to the float64 rule: no further from a
+    float64 run of the plain version than 3x the plain float32 version
+    (plus 1e-6), a bound that does not depend on the two float32 versions
+    summing in one order."""
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    flat, z, data, idx, kw = _fused_case(cuda, [128, 128, 2], 32, 512, periodic, 5,
+                                         n_data=5000)
+    kp, km, kv, kmet = ft.fused_chunk(flat, z, z, 0.0, data, idx, kernel="fused_train", **kw)
+    pp, pm, pv, pmet = ft.fused_chunk_plain(flat, z, z, 0.0, data, idx, **kw)
+    f64 = [t.double() for t in flat]
+    z64 = [t.double() for t in z]
+    qp, qm, qv, qmet = ft.fused_chunk_plain(f64, z64, z64, 0.0, data.double(), idx, **kw)
+
+    def dist(a, b):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
+
+    assert dist(kp, qp) <= 3 * dist(pp, qp) + 1e-6
+    assert dist(km + kv, qm + qv) <= 3 * dist(pm + pv, qm + qv) + 1e-6
+    assert dist([kmet], [qmet]) <= 3 * dist([pmet], [qmet]) + 1e-6
+
+
+@pytest.mark.parametrize("B,kernel", [(256, "fused_train_cluster"), (320, "fused_train")])
+def test_encodermap_trains_through_fused_kernel(cuda, tmp_path, B, kernel):
+    """[64,64,2] trains through the kernel the router picks: the cluster
+    kernel at the default B=256, the grid kernel at B=320."""
     import encodermap_tpu_torch as em
     from encodermap_tpu_torch.ops import _build
 
     data = em.create_n_cube(3, points_along_edge=100, seed=0)[0]
     p = em.Parameters(main_path=str(tmp_path), n_neurons=[64, 64, 2],
                       periodicity=float("inf"), n_steps=400, steps_per_scan=200,
-                      seed=0)
+                      batch_size=B, seed=0)
     emap = em.EncoderMap(p, data)
     before = dict(_build.launch_counts)
     hist = emap.train()
-    # [64,64,2] at B=256 fits the cluster kernel
-    assert _build.launch_counts["fused_train_cluster"] == before.get("fused_train_cluster", 0) + 2
-    assert _build.launch_counts["fused_train"] == before.get("fused_train", 0)
+    other = ({"fused_train", "fused_train_cluster"} - {kernel}).pop()
+    assert _build.launch_counts[kernel] == before.get(kernel, 0) + 2
+    assert _build.launch_counts[other] == before.get(other, 0)
     assert hist["loss"][-50:].mean() < hist["loss"][:50].mean()
     again = em.EncoderMap.from_checkpoint(tmp_path, train_data=data)
     assert np.array_equal(again.encode(data), emap.encode(data))

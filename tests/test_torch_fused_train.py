@@ -18,6 +18,8 @@ up to ~2.4e-7, pallas_train.py:49-67) where the port takes the native
 atan2."""
 
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -49,10 +51,10 @@ def _net(rng, d_in, periodic, width=16, scale=0.2):
     return [np.asarray(a, np.float32) for a in ws + bs]
 
 
-def _case(periodic, steps, B, seed):
+def _case(periodic, steps, B, seed, width=16):
     rng = np.random.default_rng(seed)
     d0 = 4 if periodic else 3
-    flat = _net(rng, d0, periodic)
+    flat = _net(rng, d0, periodic, width=width)
     data = (rng.uniform(-np.pi, np.pi, (200, d0)) if periodic
             else rng.standard_normal((200, d0))).astype(np.float32)
     idx = rng.integers(0, len(data), (steps, B))
@@ -80,11 +82,15 @@ def test_plain_chunk_matches_jax_pallas_interpret(periodic):
     np.testing.assert_allclose(tmet.numpy(), np.asarray(jmet), atol=2e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
-def test_plain_chunk_matches_jax_hand_step_and_adam(periodic):
-    """20 steps of the port against JAX's hand_step + _adam_update applied
-    step by step (the oracle of the JAX kernel's own test), from step 7."""
-    flat, data, idx, hyper = _case(periodic, steps=20, B=64, seed=3)
+@pytest.mark.parametrize("periodic,steps,B,width", [
+    (False, 20, 64, 16), (True, 20, 64, 16), (False, 3, 24, 144), (True, 3, 24, 144)],
+    ids=["cube", "periodic", "cube-144", "periodic-144"])
+def test_plain_chunk_matches_jax_hand_step_and_adam(periodic, steps, B, width):
+    """The port against JAX's hand_step + _adam_update applied step by step
+    (the oracle of the JAX kernel's own test), from step 7: 20 steps at
+    width 16, and 3 at [144,144,2], a width the grid kernel takes at the
+    default batch (the cluster kernel cannot hold it at B=256)."""
+    flat, data, idx, hyper = _case(periodic, steps=steps, B=B, seed=3, width=width)
     p = [jnp.asarray(a) for a in flat]
     m = [jnp.zeros_like(a) for a in p]
     v = [jnp.zeros_like(a) for a in p]
@@ -238,15 +244,20 @@ def test_cluster_footprint_matches_design_table(periodic, width, act_bytes, gath
 
 @pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
 def test_fused_route_by_shape(periodic):
-    """The main configuration (B=256) takes the cluster kernel; batches
-    whose rows outgrow one CTA's shared memory take the grid kernel."""
+    """The main configuration (B=256) takes the cluster kernel; from
+    GRID_MIN_BATCH on the grid kernel, which the H100 runs faster there
+    (B=288, where the cluster kernel would still fit), and batches whose
+    rows outgrow one CTA's shared memory take the grid kernel too."""
     dims, d0 = _main_dims(periodic)
 
     def need(B):
         return FT.cluster_footprint(dims, 3, B, d0)["total"]
 
-    assert need(256) <= FT.MAX_SMEM_BYTES
+    assert FT.GRID_MIN_BATCH == 288
+    assert need(256) <= FT.MAX_SMEM_BYTES and need(288) <= FT.MAX_SMEM_BYTES
     assert FT.fused_route(dims, 3, 256, d0) == "fused_train_cluster"
+    assert FT.fused_route(dims, 3, 287, d0) == "fused_train_cluster"
+    assert FT.fused_route(dims, 3, 288, d0) == "fused_train"
     for B in (1024, 4096):
         assert need(B) > FT.MAX_SMEM_BYTES
         assert FT.fused_route(dims, 3, B, d0) == "fused_train"
@@ -263,3 +274,99 @@ def test_cluster_footprint_refuses_past_layer_table():
         FT.cluster_footprint(seventeen, 9, 256, 3)
     with pytest.raises(ValueError, match="layer table"):
         FT.fused_route(seventeen, 9, 256, 3)
+
+
+@pytest.mark.parametrize("width,B,route,footprint", [
+    (128, 128, "fused_train_cluster", 168384), (128, 256, "fused_train_cluster", 208224),
+    (144, 128, "fused_train_cluster", 206848), (144, 256, "fused_train", 249760),
+    (256, 128, "fused_train", 590784), (256, 256, "fused_train", 655200)])
+def test_fused_route_at_widths(width, B, route, footprint):
+    """Width 128 takes the cluster kernel at the default B=256; width 144
+    outgrows one cluster CTA from B=256 on and width 256 at any batch (its
+    two staged 256-wide weight buffers alone exceed 227 KB), so both take
+    the grid kernel below GRID_MIN_BATCH too."""
+    dims = [3, width, width, 2, width, width, 3]
+    assert FT.cluster_footprint(dims, 3, B, 3)["total"] == footprint
+    assert FT.fused_route(dims, 3, B, 3) == route
+    if footprint > FT.MAX_SMEM_BYTES:
+        assert route == "fused_train"
+
+
+_CUBE = [3, 128, 128, 2, 128, 128, 3]
+
+
+@pytest.mark.parametrize("dims,B,d0,groups,rows,pair_tiles,total", [
+    (_CUBE, 1024, 3, 16, 64, 136, 1386576),
+    (_CUBE, 1000, 3, 16, 64, 136, 1373208),
+    (_CUBE, 4096, 3, 26, 160, 2080, 4640002),
+    (_CUBE, 16384, 3, 29, 576, 32896, 22270673),
+    ([8, 128, 128, 2, 128, 128, 8], 1024, 4, 16, 64, 136, 1418400),
+    ([3, 256, 256, 2, 256, 256, 3], 256, 3, 8, 32, 10, 1476392),
+    ([3, 32, 16, 2, 16, 32, 3], 50, 3, 2, 32, 1, None)],
+    ids=["cube-1024", "ragged-1000", "cube-4096", "cube-16384", "periodic-1024",
+         "256-wide-256", "small-50"])
+def test_grid_plan_matches_design_table(dims, B, d0, groups, rows, pair_tiles, total):
+    """The grid kernel's plan at the timed shapes on a card that holds 30
+    of its 8-CTA clusters (two CTAs on each of 120 SMs): as many row groups
+    as 32-row tiles allow up to 30, each a whole number of tiles (B=1024:
+    16 groups of 64 rows; B=16384: 29 of 576, the last 144), 64 x 64 pair
+    tiles over the upper triangle, and the scratch: activations of every
+    layer, two delta buffers of groups x rows x widest layer, the pair
+    slots (one per row, latent component and partner tile), two steps of
+    per-CTA metric sums, one weight-gradient slot per row group."""
+    p = FT.grid_plan(dims, 3, B, d0, max_clusters=30)
+    assert (p["cluster"], p["tile"], p["pair_tile"]) == (8, 32, 64)
+    assert (p["groups"], p["rows"], p["ctas"]) == (groups, rows, 8 * groups)
+    assert p["pair_tiles"] == pair_tiles
+    assert (p["groups"] - 1) * p["rows"] < B <= p["groups"] * p["rows"]
+    assert p["rows"] % 32 == 0
+    nt = -(-B // 64)
+    n_params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    f = p["floats"]
+    assert f["activations"] == B * sum(dims)
+    assert f["deltas"] == 2 * groups * rows * max(dims)
+    assert f["pair_slots"] == nt * dims[3] * B
+    assert f["grad_slots"] == groups * n_params
+    assert f["partials"] == 2 * 8 * groups * 4
+    assert f["total"] == sum(v for k, v in f.items() if k != "total")
+    if total is not None:
+        assert f["total"] == total
+
+
+#: the scratch items of grid_plan by the C source's names for them
+_PLAN_ITEMS = {"kPlanBatch": "batch", "kPlanActs": "activations", "kPlanDeltas": "deltas",
+               "kPlanPairGrad": "pair_grad", "kPlanSlots": "pair_slots",
+               "kPlanParts": "partials", "kPlanGradSlots": "grad_slots"}
+
+
+@pytest.mark.parametrize("B", [50, 1024, 16384])
+def test_grid_plan_array_is_what_the_kernel_reads(B):
+    """The grid kernel takes its row groups, rows and scratch sizes from
+    grid_plan: the array the wrapper passes holds them in the order of the
+    source's ``enum Plan``, and the tile constants it declares are the
+    source's own (``kCluster``, ``kTile``, ``kPair``)."""
+    src = (Path(FT.__file__).parents[1] / "csrc" / "fused_train.cu").read_text()
+    names = [n.strip() for n in re.search(r"enum Plan \{([^}]*)\}", src).group(1).split(",")]
+    consts = dict(re.findall(r"constexpr int (kCluster|kTile|kPair) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "kCluster": FT.GRID_CLUSTER, "kTile": FT.GRID_TILE, "kPair": FT.PAIR_TILE}
+    plan = FT.grid_plan(_CUBE, 3, B, 3, max_clusters=30)
+    want = {"kPlanGroups": plan["groups"], "kPlanRows": plan["rows"], "kPlanCluster": 8,
+            "kPlanTile": 32, "kPlanPair": 64,
+            **{k: plan["floats"][v] for k, v in _PLAN_ITEMS.items()}}
+    assert sorted(names) == sorted(want)
+    assert list(FT._plan_array(plan)) == [want[n] for n in names]
+
+
+def test_grid_plan_fits_the_clusters_the_card_holds():
+    """Fewer co-resident clusters give fewer, taller row groups; the plan
+    never asks for more clusters than the card holds, and refuses none."""
+    for max_clusters in (1, 7, 16, 30, 64):
+        for B in (1, 31, 32, 33, 255, 1000, 16384):
+            p = FT.grid_plan(_CUBE, 3, B, 3, max_clusters)
+            assert 1 <= p["groups"] <= max_clusters
+            assert (p["groups"] - 1) * p["rows"] < B <= p["groups"] * p["rows"]
+    with pytest.raises(ValueError, match="no cluster"):
+        FT.grid_plan(_CUBE, 3, 256, 3, 0)
+    with pytest.raises(ValueError, match="layer table"):
+        FT.grid_plan([3] + [8] * 16 + [3], 9, 256, 3, 30)
