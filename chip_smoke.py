@@ -22,7 +22,12 @@ the step) and multimer training (a trp-cage homodimer placed by decoded
 transforms). Its last leg is BASELINE config 4: a synthetic M1-linked
 diubiquitin written as PDB + XTC, loaded and featurized on the card (held
 against the CPU), the ADC trained on the trajectory ensemble itself, and
-conformations generated onto the topology by the rotation sweep. Then
+conformations generated onto the topology by the rotation sweep. The
+analysis leg follows on the same diUbi frames: written as DCD, TRR and GRO
+and read back, featurized from DCD + TRR, secondary structure (DSSP) on the
+card over all frames, ``MolData``, the pairwise-RMSD matrix and a latent
+cluster's centroid, and a reconstruct-sidechain ADC trained on a trp-cage
+trajectory ensemble and generated onto its topology. Then
 BASELINE config 5: ``train_streaming`` over a million-frame memmap at
 [128,128,2], B=256, 1000-step superbatches (pinned uploads on a side
 stream, held bit for bit to the in-memory chunk trainer), the ADC streaming
@@ -976,6 +981,19 @@ def synthetic_protein(sequence: str, n_frames: int, seed: int = 0,
     return top, (np.stack(cols, axis=1) / 10.0).astype(np.float32)
 
 
+def write_gro(path, top, frame: np.ndarray, box: float = 10.0) -> None:
+    """One frame ``(n_atoms, 3)`` nm as a GROMACS .gro file: a title, the
+    atom count, one fixed-column line per atom (``%8.3f`` nm) and a cubic
+    box of ``box`` nm."""
+    lines = ["written by chip_smoke.py", f"{top.n_atoms:5d}"]
+    for a in top.atoms:
+        x = frame[a.index]
+        lines.append(f"{a.residue.resSeq % 100000:5d}{a.residue.name:<5s}{a.name:>5s}"
+                     f"{(a.index + 1) % 100000:5d}{x[0]:8.3f}{x[1]:8.3f}{x[2]:8.3f}")
+    lines.append(f"{box:10.5f}{box:10.5f}{box:10.5f}")
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
 def adc_cvs(n_res: int, n_frames: int, seed: int = 0) -> dict:
     """Synthetic ADC CVs as bench.py builds them: random bond angles,
     dihedrals, bond lengths and side dihedrals from ``seed`` with numpy,
@@ -1617,7 +1635,214 @@ def phase_featurize(em, fs, _build, run_dir: Path, n_frames: int = 2048) -> dict
     log(f"[{tag}] generated frames written to XTC and read back: {again.n_frames} frames "
         f"within {r_err:.2e} nm")
     check(again.n_frames == 256 and r_err <= 5.01e-4, f"{tag}: generated XTC round trip")
-    return dict(counts=counts, kernels=kern, ms=ms, wall=wall, trajs=trajs, cvs=cvs)
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall, trajs=trajs, cvs=cvs,
+                emap=emap, top=top, xyz=xyz, pdb=pdb)
+
+
+# ------------------------------------------------------- slice 6a: analysis
+def dssp_mismatches(top, xyz: np.ndarray, frames: np.ndarray, tag: str) -> int:
+    """Where the card's and the CPU's DSSP strings differ in ``frames``,
+    the H-bond matrices of those frames must differ only at energies within
+    1e-9 kcal/mol of the -0.5 cut (float64 rounding on either side); each
+    such bond is printed. Returns the number of those bonds."""
+    from encodermap_tpu_torch.ops.dssp import dssp_backbone, kabsch_sander_energy
+
+    near = 0
+    for f in frames:
+        hb, energy = [], None
+        for dev in ("cuda", "cpu"):
+            n, ca, c, o, h, is_pro, brk, _ = dssp_backbone(
+                torch.as_tensor(xyz[f:f + 1], device=dev), top)
+            e, allowed = kabsch_sander_energy(n, ca, c, o, is_proline=is_pro, h=h,
+                                              chain_break=brk)
+            hb.append(((e < -0.5) & allowed).cpu().numpy()[0])
+            energy = e.cpu().numpy()[0] if dev == "cpu" else energy
+        flips = np.argwhere(hb[0] != hb[1])
+        check(len(flips) > 0, f"{tag}: frame {f} strings differ with equal H-bond matrices")
+        for i, j in flips:
+            log(f"[{tag}] frame {f}: bond O({i})..H-N({j}) at {energy[i, j]:.15f} kcal/mol "
+                f"is {'on' if hb[0][i, j] else 'off'} on the card, "
+                f"{'on' if hb[1][i, j] else 'off'} on the CPU")
+            check(abs(energy[i, j] + 0.5) < 1e-9,
+                  f"{tag}: frame {f} bond ({i}, {j}) differs {energy[i, j] + 0.5:.3e} "
+                  f"kcal/mol from the cut")
+            near += 1
+    return near
+
+
+def phase_analysis(em, fs, _build, run_dir: Path, feat: dict) -> dict:
+    """Slice 6a, the analysis path of the EncoderMap tutorials, on
+    ``phase_featurize``'s diUbi (1,066 atoms, 2 x 2,048 frames): the frames
+    written as DCD and TRR by the port's writers and the first frame as GRO;
+    each read by ``em.load`` and held to the array written (TRR bit for
+    bit, DCD 1e-6 nm, GRO 5e-4 nm) and the GRO's topology to the PDB's; a
+    DCD + TRR ensemble featurized on the card and held to the CPU
+    (``CV_TOL``). DSSP on the card over all 4,096 frames, held to the CPU
+    on 128. ``MolData`` on the DCD. The RMSD matrix at ``max_frames=500``
+    on the card (symmetric, zero diagonal, 32 frames held to the CPU), and
+    the cluster of the most populated cell of a 16 x 16 grid over the
+    latent map of ``phase_featurize``'s ADC through ``cluster_to_dict`` and
+    ``rmsd_centroid_of_cluster``. Last, a reconstruct-sidechain ADC trained
+    on a synthetic trp-cage ``TrajEnsemble`` (DCD + TRR, 50 steps, B=256,
+    ``sidechain_info`` read off the topology; kernels 2-3 twice a step) and
+    8 conformations generated onto its topology."""
+    from types import SimpleNamespace
+
+    from encodermap_tpu_torch.data.formats import write_dcd, write_trr
+    from encodermap_tpu_torch.data.pdb import write_pdb
+    from encodermap_tpu_torch.misc.clustering import (cluster_to_dict, pairwise_rmsd_matrix,
+                                                      rmsd_centroid_of_cluster)
+    from encodermap_tpu_torch.ops.dssp import compute_dssp
+
+    tag = "analysis"
+    smi = smi_line()
+    run_dir.mkdir(parents=True, exist_ok=True)
+    top, xyz, pdb = feat["top"], feat["xyz"], feat["pdb"]
+    n = len(xyz) // 2
+    dcd, trr, gro = (str(run_dir / f) for f in ("diubi_0.dcd", "diubi_1.trr", "diubi.gro"))
+    write_dcd(dcd, xyz[:n])
+    write_trr(trr, xyz[n:])
+    write_gro(gro, top, xyz[0])
+
+    # --- formats
+    t0 = time.perf_counter()
+    from_dcd = em.load(dcd, pdb)
+    x_dcd = np.asarray(from_dcd.xyz)
+    t_dcd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_trr = np.asarray(em.load(trr, pdb).xyz)
+    t_trr = time.perf_counter() - t0
+    from_gro = em.load(gro)
+    dcd_err = float(np.abs(x_dcd - xyz[:n]).max())
+    gro_err = float(np.abs(np.asarray(from_gro.xyz) - xyz[:1]).max())
+    log(f"[{tag}] DCD {x_dcd.shape} read at {n / t_dcd:.0f} frames/s, within {dcd_err:.2e} nm; "
+        f"TRR read at {n / t_trr:.0f} frames/s, bit for bit {np.array_equal(x_trr, xyz[n:])}; "
+        f"GRO within {gro_err:.2e} nm (host clock; {smi})")
+    check(x_dcd.shape == (n, top.n_atoms, 3) and dcd_err <= 1e-6, f"{tag}: DCD coordinates")
+    check(np.array_equal(x_trr, xyz[n:]), f"{tag}: TRR coordinates not bit for bit")
+    check(from_gro.n_frames == 1 and gro_err <= 5.01e-4, f"{tag}: GRO coordinates")
+
+    def table(t):
+        return ([(a.name, a.element) for a in t.atoms],
+                [(r.name, r.resSeq) for r in t.residues])
+
+    check(table(from_gro.top) == table(top), f"{tag}: the GRO's topology differs from the PDB's")
+    log(f"[{tag}] GRO topology: {from_gro.top.n_atoms} atoms, {from_gro.top.n_residues} "
+        f"residues, names and elements as the PDB's")
+    ens = em.load([dcd, trr], pdb)
+    ens.load_trajs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens.load_CVs("all", ensemble=True)
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    cpu = em.load([dcd, trr], pdb)
+    cpu.load_CVs("all", ensemble=True, device="cpu")
+    errs = cv_errors(ens.CVs, cpu.CVs)
+    log(f"[{tag}] DCD + TRR ensemble featurized on the card at {2 * n / t_feat:.0f} frames/s "
+        f"(host clock ending in a sync; {smi}); card against CPU: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(all(v <= CV_TOL[k] for k, v in errs.items()), f"{tag}: card CVs off the CPU's")
+
+    # --- DSSP
+    frames = SimpleNamespace(top=top, xyz=np.concatenate([x_dcd, x_trr]))
+    compute_dssp(SimpleNamespace(top=top, xyz=frames.xyz[:8]))  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ss = compute_dssp(frames)
+    t_ss = time.perf_counter() - t0
+    check(ss.shape == (2 * n, top.n_residues), f"{tag}: DSSP shape {ss.shape}")
+    head = SimpleNamespace(top=top, xyz=frames.xyz[:128])
+    t0 = time.perf_counter()
+    ref = compute_dssp(head, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    ss8, ref8 = compute_dssp(head, simplified=False), compute_dssp(head, simplified=False,
+                                                                    device="cpu")
+    bad = np.flatnonzero((ss[:128] != ref).any(1) | (ss8 != ref8).any(1))
+    near = dssp_mismatches(top, frames.xyz, bad, tag) if len(bad) else 0
+    device_split(lambda: compute_dssp(frames), t_ss * 1e3, 1, f"{tag} dssp")
+    share = {k: float((ss == k).mean()) for k in "HEC"}
+    log(f"[{tag}] DSSP on the card: {2 * n} frames x {top.n_residues} residues at "
+        f"{2 * n / t_ss:.0f} frames/s (host clock, float64; {smi}); the CPU "
+        f"{128 / t_cpu:.0f} frames/s; 3- and 8-state strings of 128 frames equal the CPU's "
+        f"but in {len(bad)} frames ({near} bonds within 1e-9 kcal/mol of the cut); "
+        f"H {share['H']:.3f}, E {share['E']:.3f}, C {share['C']:.3f}")
+
+    # --- MolData
+    md = em.MolData(from_dcd)
+    cvs = from_dcd.CVs
+    for attr, key in (("angles", "central_angles"), ("dihedrals", "central_dihedrals"),
+                      ("central_cartesians", "central_cartesians"),
+                      ("lengths", "central_distances"), ("sidedihedrals", "side_dihedrals")):
+        check(np.array_equal(getattr(md, attr), np.asarray(cvs[key])),
+              f"{tag}: MolData.{attr} differs from load_CVs' {key}")
+    check(np.array_equal(md.cartesians, x_dcd), f"{tag}: MolData.cartesians")
+    log(f"[{tag}] MolData on the DCD: its six arrays equal load_CVs' "
+        f"({', '.join(f'{k} {getattr(md, k).shape}' for k in ('angles', 'dihedrals', 'cartesians', 'central_cartesians', 'lengths', 'sidedihedrals'))})")
+
+    # --- RMSD clustering
+    pairwise_rmsd_matrix(frames.xyz[:16])  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D = pairwise_rmsd_matrix(frames.xyz, max_frames=500)
+    ms_rmsd = (time.perf_counter() - t0) * 1e3
+    sub = np.linspace(0, 2 * n - 1, 500).astype(int)
+    D_cpu = pairwise_rmsd_matrix(frames.xyz[sub[:32]], device="cpu")
+    asym, diag = float(np.abs(D - D.T).max()), float(np.abs(np.diag(D)).max())
+    cpu_err = float(np.abs(D[:32, :32] - D_cpu).max())
+    log(f"[{tag}] pairwise_rmsd_matrix, 500 frames x {top.n_atoms} atoms: {ms_rmsd:.1f} ms "
+        f"(host clock ending in a copy to the host; {smi}); asymmetry {asym:.2e} nm, "
+        f"diagonal {diag:.2e} nm, 32 frames against the CPU {cpu_err:.2e} nm; RMSD "
+        f"{D.min():.3f}..{D.max():.3f} nm")
+    check(D.shape == (500, 500) and asym <= 1e-5 and diag <= 1e-5, f"{tag}: RMSD matrix")
+    device_split(lambda: pairwise_rmsd_matrix(frames.xyz, max_frames=500), ms_rmsd, 1,
+                 f"{tag} rmsd")
+    check(cpu_err <= 1e-5, f"{tag}: RMSD matrix off the CPU's")
+    latent = feat["emap"].encode()
+    cells = [np.clip(((latent[:, k] - latent[:, k].min()) / np.ptp(latent[:, k]) * 16)
+                     .astype(int), 0, 15) for k in (0, 1)]
+    cell = cells[0] * 16 + cells[1]
+    members = np.flatnonzero(cell == np.bincount(cell).argmax())
+    membership = np.full(2 * n, -1)
+    membership[members] = 0
+    ens.load_CVs(membership, attr_name="cluster_membership")
+    t0 = time.perf_counter()
+    views = cluster_to_dict(ens.cluster(0))
+    t_ctd = time.perf_counter() - t0
+    check(np.array_equal(views["series"], np.zeros(len(members)))
+          and views["joined"].n_frames == len(members)
+          and views["stacked"].n_atoms == len(members) * top.n_atoms
+          and np.isfinite(views["joined"].xyz).all(), f"{tag}: cluster_to_dict views")
+    centre, dist = rmsd_centroid_of_cluster(frames.xyz[members])
+    centre_cpu, dist_cpu = rmsd_centroid_of_cluster(frames.xyz[members], device="cpu")
+    c_err = float(np.abs(dist - dist_cpu).max())
+    log(f"[{tag}] most populated latent cell (16 x 16 grid): {len(members)} frames; "
+        f"cluster_to_dict {t_ctd * 1e3:.1f} ms (host); centroid frame {members[centre]} "
+        f"(the CPU's {members[centre_cpu]}), its matrix within {c_err:.2e} nm of the CPU's")
+    check(centre == centre_cpu and c_err <= 1e-5, f"{tag}: the centroid differs from the CPU's")
+
+    # --- a reconstruct-sidechain ADC on a trajectory ensemble, generated
+    # onto its topology
+    sc_top, sc_xyz = synthetic_protein(TRP_CAGE, 2048, seed=6, device="cuda")
+    sc_pdb = str(run_dir / "trp.pdb")
+    write_pdb(sc_pdb, sc_top, sc_xyz[:1])
+    write_dcd(run_dir / "trp_0.dcd", sc_xyz[:1024])
+    write_trr(run_dir / "trp_1.trr", sc_xyz[1024:])
+    trp = em.load([str(run_dir / "trp_0.dcd"), str(run_dir / "trp_1.trr")], sc_pdb)
+    trp.load_CVs("full", ensemble=True)
+    p = adc_params(em, run_dir / "sc", 50, 50, reconstruct_sidechains=True)
+    emap, hist, counts, wall = adc_train(em, _build, trp, p, f"{tag} sidechains", 2)
+    check(p.sidechain_info == sc_top.sidechain_info(),
+          f"{tag}: sidechain_info {p.sidechain_info} is not the topology's")
+    z = emap.encode()[:8]
+    gen = emap.generate(z, backend="topology", top=trp[0])
+    check(gen.shape == (8, sc_top.n_atoms, 3) and np.isfinite(gen).all(),
+          f"{tag}: generate shape {gen.shape}")
+    chain = sc_top.central_atom_indices()
+    quads = np.stack([chain[:-3], chain[1:-2], chain[2:-1], chain[3:]], axis=1)
+    check_rotated(sc_top, np.asarray(trp[0].xyz[0], np.float64), gen.astype(np.float64),
+                  quads, emap.decode(z)[1], f"{tag} sidechains topology")
+    return dict(counts=counts, dssp_fps=2 * n / t_ss, rmsd_ms=ms_rmsd)
 
 
 # --------------------------------------------------------- slice 5: scale-out
@@ -1958,11 +2183,15 @@ def main() -> int:
                             ("adc_sidechains", phase_adc_sidechains),
                             ("adc_multimer", phase_adc_multimer),
                             ("featurize", phase_featurize),
+                            ("analysis", phase_analysis),
                             ("streaming", phase_streaming)):
             t0 = time.perf_counter()
-            adc_legs.append(phase(em, fs, _build, Path(tmp) / name))
+            if phase is phase_analysis:
+                adc_legs.append(phase(em, fs, _build, Path(tmp) / name, adc_legs[-1]))
+            else:
+                adc_legs.append(phase(em, fs, _build, Path(tmp) / name))
             log(f"[leg] {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
-        feat, stream = adc_legs[-2], adc_legs[-1]
+        feat, stream = adc_legs[-3], adc_legs[-1]
         t0 = time.perf_counter()
         adc_legs.append(phase_adc_streaming(em, fs, _build, Path(tmp) / "adc_streaming", feat))
         log(f"[leg] phase_adc_streaming: {time.perf_counter() - t0:.1f} s wall")

@@ -17,7 +17,11 @@ generation onto a topology (``generate(backend="topology")``). Slice 5 is
 scale-out: out-of-core training from superbatch sources (``train_streaming``,
 ``train/core.py::HDF5BatchSource``, pinned uploads on a side stream) and
 data parallelism over ``torch.distributed`` (``mesh_shape={"dp": N}`` with
-one process per device, ``parallel/``).
+one process per device, ``parallel/``). Slice 6a adds GRO, DCD and TRR
+files (``data/formats.py``), secondary structure (``ops/dssp.py``) and RMSD
+clustering (``misc/clustering.py``) on the card, ``MolData``, the
+reference's ``.keras`` checkpoints (``misc/keras_import.py``) and
+``load_project`` (``kondata.py``).
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed::
 
@@ -34,6 +38,9 @@ Entry points run on the CUDA card unless ``device="cpu"`` is passed::
     adc.train()                            # or a dict of CV arrays
     xyz = adc.generate(adc.encode()[:10], backend="topology", top=trajs[0])
 
+    from encodermap_tpu_torch.ops.dssp import compute_dssp
+    ss = compute_dssp(trajs[0])            # (frames, residues) of H/E/C
+
     trajs.save("ens.h5")                   # out of core (needs h5py)
     adc = em.AngleDihedralCartesianEncoderMap.from_ensemble_h5("ens.h5", em.ADCParameters())
     adc.train_streaming("ens.h5")
@@ -42,8 +49,11 @@ Entry points run on the CUDA card unless ``device="cpu"`` is passed::
     p = em.Parameters(mesh_shape={"dp": 4})  # each rank 1/4 of every batch
 """
 
+__version__ = "0.1.0"
+
+from . import data, loading, misc, models, parallel
 from .data.api import load
-from .data.custom_topology import CustomTopology
+from .data.custom_topology import CustomAAsDict, CustomTopology
 from .data.trajectory import SingleTraj, TrajEnsemble
 from .loading.featurizer import Featurizer
 from .losses import (
@@ -60,8 +70,11 @@ from .losses import (
     side_dihedral_loss,
     sigmoid_loss,
 )
+from .kondata import get_from_kondata, load_project
 from .misc.misc import create_n_cube
 from .models.sequential import SequentialModel, gen_sequential_model
+from .moldata import MolData
+from .parallel.sharded_featurize import DaskFeaturizer
 from .parameters import ADCParameters, Parameters
 from .train.adc_autoencoder import AngleDihedralCartesianEncoderMap
 from .train.autoencoder import Autoencoder, DihedralEncoderMap, EncoderMap
@@ -74,6 +87,20 @@ from .train.callbacks import (
 )
 
 __all__ = [
+    "__version__",
+    "data",
+    "loading",
+    "misc",
+    "models",
+    "parallel",
+    "features",
+    "callbacks",
+    "EncoderMapBaseCallback",
+    "MolData",
+    "get_from_kondata",
+    "load_project",
+    "DaskFeaturizer",
+    "CustomAAsDict",
     "load",
     "SingleTraj",
     "TrajEnsemble",
@@ -106,3 +133,32 @@ __all__ = [
     "side_dihedral_loss",
     "sigmoid_loss",
 ]
+
+
+def __getattr__(name):
+    # namespaces built on first use, as in the JAX package
+    import importlib
+
+    if name == "features":
+        return importlib.import_module(".loading.features", __name__)
+    if name == "EncoderMapBaseCallback":
+        return Callback
+    if name == "callbacks":
+        # em.callbacks: the callbacks, the reference's base-callback name,
+        # and the metric classes that its callbacks package re-exports
+        # (metrics.py:250-581) with the Kabsch helpers it defines
+        mod = importlib.import_module(".train.callbacks", __name__)
+        if not hasattr(mod, "EncoderMapBaseMetric"):
+            metrics_mod = importlib.import_module(".train.metrics", __name__)
+            for _name in metrics_mod.__all__:
+                setattr(mod, _name, getattr(metrics_mod, _name))
+            from .ops.kabsch import kabsch_weighted, rmsd
+
+            mod.kabsch_weighted = kabsch_weighted
+            mod.rmsd = rmsd
+            mod.EncoderMapBaseCallback = mod.Callback
+            # the reference's weight-NaN abort; the loss-NaN abort catches
+            # the same divergence a step earlier
+            mod.NoneInterruptCallback = mod.NaNInterrupt
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -27,19 +27,6 @@ from .topology import Topology
 __all__ = ["SingleTraj", "TrajEnsemble"]
 
 
-#: read by ``encodermap_tpu/data/formats.py``, which is not ported yet
-_LATER_FORMATS = (".gro", ".dcd", ".trr")
-
-
-def _formats(path: str):
-    """GRO, DCD and TRR files wait for a later slice; XTC, PDB and HDF5
-    are read."""
-    raise NotImplementedError(
-        f"{path}: GRO, DCD and TRR files are not read by encodermap_tpu_torch "
-        f"yet (data/formats.py is a later slice of the port); convert to "
-        f"XTC + PDB first")
-
-
 CV_SHORTCUTS = (
     "central_angles",
     "central_dihedrals",
@@ -239,8 +226,13 @@ class SingleTraj:
                 if self.traj_file == self.top_file:
                     self._file_xyz = xyz
                     self._file_box = cell
-            elif self.top_file.endswith(_LATER_FORMATS):
-                _formats(self.top_file)
+            elif self.top_file.endswith(".gro"):
+                from .formats import load_gro
+
+                self._top, xyz, cell = load_gro(self._top_path)
+                if self.traj_file == self.top_file:
+                    self._file_xyz = xyz
+                    self._file_box = cell
             elif self.top_file.endswith((".h5", ".hdf5")):
                 self._load_h5(top_only=True)
                 if self._top is None:
@@ -283,8 +275,23 @@ class SingleTraj:
                 self._file_xyz = xyz
                 self._file_box = cell
                 self._n_frames_file = len(xyz)
-            elif self.traj_file.endswith(_LATER_FORMATS):
-                _formats(self.traj_file)
+            elif self.traj_file.endswith(".gro"):
+                from .formats import load_gro
+
+                _, xyz, cell = load_gro(self._traj_path)
+                self._file_xyz = xyz
+                self._file_box = cell
+                self._n_frames_file = len(xyz)
+            elif self.traj_file.endswith(".dcd"):
+                from .formats import DCDReader
+
+                self._reader = DCDReader(self._traj_path)
+                self._n_frames_file = self._reader.n_frames
+            elif self.traj_file.endswith(".trr"):
+                from .formats import TRRReader
+
+                self._reader = TRRReader(self._traj_path)
+                self._n_frames_file = self._reader.n_frames
             elif self.traj_file.endswith((".h5", ".hdf5")):
                 self._load_h5(top_only=False, lazy_count=True)
             else:
@@ -367,9 +374,18 @@ class SingleTraj:
             if box.size and np.abs(np.linalg.det(box)).min() < 1e-12:
                 box = None
             self._unitcell = box
-        elif self.traj_file.endswith(".pdb"):
+        elif self.traj_file.endswith((".pdb", ".gro")):
             if not hasattr(self, "_file_xyz"):
-                _, self._file_xyz, self._file_box = load_pdb(self._traj_path)
+                if self.traj_file.endswith(".pdb"):
+                    _, self._file_xyz, self._file_box = load_pdb(
+                        self._traj_path
+                    )
+                else:
+                    from .formats import load_gro
+
+                    _, self._file_xyz, self._file_box = load_gro(
+                        self._traj_path
+                    )
             self._xyz = self._file_xyz[idx]
             self._time = np.arange(len(idx), dtype=np.float32)
             # CRYST1 / gro box lines give per-frame box LENGTHS
@@ -393,6 +409,30 @@ class SingleTraj:
                         box = None
                     else:
                         box = np.stack([np.diag(v) for v in box])
+            self._unitcell = box
+        elif self.traj_file.endswith(".dcd"):
+            from .formats import DCDReader
+
+            reader = getattr(self, "_reader", None) or DCDReader(self._traj_path)
+            xyz, cells = reader.read(idx)
+            self._xyz = xyz
+            self._time = np.arange(len(idx), dtype=np.float32)
+            self._unitcell = (
+                np.stack([np.diag(c) for c in cells]) if cells is not None
+                else None
+            )
+        elif self.traj_file.endswith(".trr"):
+            from .formats import TRRReader
+
+            reader = getattr(self, "_reader", None) or TRRReader(self._traj_path)
+            xyz, box, steps = reader.read(idx)
+            self._xyz = xyz
+            self._time = steps.astype(np.float32)
+            # a TRR written without a box stores none, which reads as zeros:
+            # vacuum, as in the XTC branch (the JAX package keeps the
+            # singular cell, and its minimum image then gives NaN CVs)
+            if box.size and np.abs(np.linalg.det(box)).min() < 1e-12:
+                box = None
             self._unitcell = box
         elif self.traj_file.endswith((".h5", ".hdf5")):
             import h5py

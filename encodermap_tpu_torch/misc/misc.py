@@ -1,21 +1,34 @@
 # encodermap_tpu_torch/misc/misc.py
 """The hypercube toy dataset, the fallback training data of EncoderMap,
-and the file-matching helpers of the trajectory loaders.
+the file-matching helpers of the trajectory loaders, and the reference's
+small host helpers (cube-edge points, run directories, text tables,
+dihedrals of point quadruplets, a temporary numpy seed).
 
-Counterpart of ``encodermap_tpu/misc/misc.py`` (``create_n_cube``,
-``get_full_common_str_and_ref``, ``match_files``, ``_session_tmpfile``). It
-is numpy, copied line for line, so the same seed gives bit-identical data
-in both packages.
+Counterpart of ``encodermap_tpu/misc/misc.py`` (all of it but
+``plot_model``, which waits for the plotting slice). It is numpy, copied
+line for line, so the same seed gives bit-identical data in both packages.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager as _contextmanager
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-__all__ = ["create_n_cube", "get_full_common_str_and_ref", "match_files"]
+__all__ = [
+    "create_n_cube",
+    "random_on_cube_edges",
+    "run_path",
+    "all_equal",
+    "get_full_common_str_and_ref",
+    "match_files",
+    "printTable",
+    "arbitrary_dihedral",
+    "backbone_hydrogen_oxygen_crossproduct",
+    "temp_seed",
+]
 
 
 def create_n_cube(
@@ -193,3 +206,169 @@ def _session_tmpfile(suffix: str) -> str:
 
     atexit.register(_cleanup)
     return f.name
+
+
+def random_on_cube_edges(
+    n_points: int, sigma: float = 0.0, seed: Optional[int] = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """``n_points`` random 3-D points uniformly distributed on the 12 edges
+    of the unit cube, with optional Gaussian noise — the toy dataset of the
+    reference's cube examples (``encodermap_tf1/misc.py:246-283``,
+    ``examples/cube_distance_analysis.py``). Returns ``(coordinates,
+    edge_ids)``.
+
+    Example:
+        >>> from encodermap_tpu_torch.misc import random_on_cube_edges
+        >>> data, ids = random_on_cube_edges(100, sigma=0.0, seed=0)
+        >>> data.shape, ids.shape
+        ((100, 3), (100,))
+        >>> bool((ids < 12).all())
+        True
+    """
+    rng = np.random.default_rng(seed) if seed is not None else np.random
+    r = rng.uniform(size=n_points)
+    x = y = z = 1
+    a = np.array(
+        [[0, 0, 0]] * 3 + [[x, y, 0]] * 3 + [[0, y, z]] * 3 + [[x, 0, z]] * 3,
+        dtype=np.float64,
+    )
+    b = np.array(
+        [
+            [x, 0, 0], [0, y, 0], [0, 0, z],
+            [-x, 0, 0], [0, -y, 0], [0, 0, z],
+            [x, 0, 0], [0, -y, 0], [0, 0, -z],
+            [-x, 0, 0], [0, y, 0], [0, 0, -z],
+        ],
+        dtype=np.float64,
+    )
+    ids = np.minimum((r * 12).astype(np.int64), 11)
+    frac = (r - ids / 12.0) * 12.0
+    coordinates = a[ids] + frac[:, None] * b[ids]
+    if sigma:
+        coordinates = coordinates + rng.normal(
+            scale=sigma, size=(n_points, 3)
+        )
+    return coordinates, ids.astype(np.float64)
+
+
+def run_path(base: str) -> str:
+    """Create and return a unique runN directory under ``base``.
+
+    Example:
+        >>> import tempfile
+        >>> from encodermap_tpu_torch.misc import run_path
+        >>> base = tempfile.mkdtemp()
+        >>> run_path(base).endswith("run0")
+        True
+        >>> run_path(base).endswith("run1")
+        True
+    """
+    from pathlib import Path
+
+    base_p = Path(base)
+    i = 0
+    while (base_p / f"run{i}").exists():
+        i += 1
+    p = base_p / f"run{i}"
+    p.mkdir(parents=True, exist_ok=True)
+    return str(p)
+
+
+def all_equal(iterable) -> bool:
+    """True when every element of ``iterable`` compares equal (and for the
+    empty iterable; reference ``misc/misc.py:414-426``)."""
+    it = iter(iterable)
+    try:
+        first = next(it)
+    except StopIteration:
+        return True
+    return all(x == first for x in it)
+
+
+def printTable(myDict, colList=None, sep: str = "￺") -> str:
+    """Render a list of row-dicts as a fixed-width text table (the
+    reference's ``printTable`` contract, ``misc/misc.py:354-392``: returns
+    the table as a string, rows indented four spaces, ``sep`` splitting a
+    cell into multiple lines with a dashed rule after the header)."""
+    if not colList:
+        colList = list(myDict[0].keys()) if myDict else []
+    header = [str(c) for c in colList]
+    # split every cell on `sep` into its line stack
+    rows = [
+        [str(item.get(c) or "").split(sep) for c in colList] for item in myDict
+    ]
+    widths = [
+        max(
+            [len(header[j])]
+            + [len(line) for row in rows for line in row[j]]
+        )
+        for j in range(len(colList))
+    ]
+    fmt = " | ".join("{:<%d}" % w for w in widths)
+    rule = "-+-".join("-" * w for w in widths)
+    # rule placement mirrors the reference (misc.py:374-378): ALWAYS one
+    # dashed rule after the header; with a custom sep the rule repeats at
+    # every row boundary
+    lines = [fmt.format(*header), rule]
+    for r_i, row in enumerate(rows):
+        if r_i and sep != "￺":
+            lines.append(rule)
+        depth = max(len(cell) for cell in row) if row else 0
+        for k in range(depth):
+            lines.append(
+                fmt.format(*[cell[k] if k < len(cell) else "" for cell in row])
+            )
+    return "  \n".join("    " + ln for ln in lines)
+
+
+def arbitrary_dihedral(pos, out=None) -> np.ndarray:
+    """Signed dihedral angles (radians, IUPAC convention) of a
+    ``(n, 4, 3)`` position array — the host-side numpy analog of
+    :func:`encodermap_tpu_torch.ops.geometry.compute_dihedrals`.
+
+    The reference's version (``misc/rotate.py:81-114``) returns values
+    offset by pi from the mdtraj convention its own featurization uses
+    (and is unused inside the reference); this one deliberately agrees
+    with ``compute_dihedrals``/mdtraj instead.
+    """
+    pos = np.asarray(pos)
+    b0 = pos[:, 0] - pos[:, 1]
+    b1 = pos[:, 2] - pos[:, 1]
+    b2 = pos[:, 3] - pos[:, 2]
+    b1n = b1 / np.linalg.norm(b1, axis=-1, keepdims=True)
+    v = b0 - (b0 * b1n).sum(-1, keepdims=True) * b1n
+    w = b2 - (b2 * b1n).sum(-1, keepdims=True) * b1n
+    x = (v * w).sum(-1)
+    y = (np.cross(b1n, v) * w).sum(-1)
+    return np.arctan2(y, x, out)
+
+
+def backbone_hydrogen_oxygen_crossproduct(backbone_positions):
+    """Import-parity stub. The reference exports this name from
+    ``em.misc`` but its body is a dead stub (an assert followed by
+    ``pass`` — ``misc/backmapping.py:1915-1917``); amide H/O placement
+    actually happens in :func:`encodermap_tpu_torch.ops.backmap.guess_amide_H`
+    / :func:`guess_amide_O`. Kept so migrating imports resolve; performs
+    the same shape check and, like the reference, returns ``None``."""
+    assert backbone_positions.shape[2] % 3 == 0  # C, CA, N: multiple of 3
+
+
+@_contextmanager
+def temp_seed(seed: int):
+    """Temporarily set numpy's global RNG seed (reference
+    ``trajinfo/info_all.py:206-225``), restoring the previous state on
+    exit.
+
+    Examples:
+        >>> import numpy as np
+        >>> from encodermap_tpu_torch.misc import temp_seed
+        >>> with temp_seed(123456789):
+        ...     print(np.random.randint(low=0, high=10, size=(5,)))
+        [8 2 9 7 4]
+    """
+    state = np.random.get_state()
+    np.random.seed(seed)
+    try:
+        yield
+    finally:
+        np.random.set_state(state)

@@ -13,7 +13,9 @@ a checkpoint written by either package loads in the other:
 * ``saved_model_{step}.rng.npy``: the batch RNG, two uint32 words;
 * ``parameters.json`` with ``current_training_step`` updated.
 
-No pickle anywhere. Reference ``.keras`` checkpoints are not read yet.
+Reference ``.keras`` checkpoints (the files published EncoderMap projects
+ship) are read through :mod:`.keras_import`, which needs ``h5py``. No pickle
+anywhere.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ __all__ = [
     "load_checkpoint",
     "load_checkpoint_rng",
     "load_opt_state",
+    "load_pytree_into",
+    "save_model",
+    "load_model",
 ]
 
 #: path of the optax Adam state inside ``(clip_state, (adam_state, lr_state))``
@@ -174,17 +179,33 @@ def load_checkpoint(path: Union[str, Path], prefix: str = "saved_model",
                     n_encoder: Optional[int] = None
                     ) -> tuple[Any, Optional[str], int]:
     """``(params, opt_npz_path_or_None, step)`` from a checkpoint file or
-    the newest checkpoint in a directory; params are numpy arrays."""
-    del n_encoder  # only reference .keras files need it
+    the newest checkpoint in a directory; params are numpy arrays. A
+    ``.keras`` file, or a directory holding only ``saved_model_*.keras``,
+    gives no optimizer state and its file name's step (-1 for a name
+    stamped with a time)."""
     path = Path(path)
     if path.suffix == ".keras":
-        raise NotImplementedError(
-            "reference .keras checkpoints are not read by encodermap_tpu_torch "
-            "yet (keras import is a later slice of the port)")
+        # a reference-format checkpoint given explicitly; n_encoder (the
+        # encoder's depth, len(p.n_neurons)) splits files whose Dense
+        # layers are not named Encoder_i/Decoder_i
+        from .keras_import import import_keras_checkpoint
+
+        params, step = import_keras_checkpoint(path, n_encoder=n_encoder)
+        return params, None, step
     if path.is_dir():
         found = latest_checkpoint(path, prefix)
         if found is None:
-            raise FileNotFoundError(f"no {prefix}_*.npz checkpoints in {path}")
+            # reference-layout project directories (kondata downloads,
+            # reference training runs) hold .keras checkpoints instead
+            from .keras_import import import_keras_checkpoint, latest_keras_checkpoint
+
+            kfound = latest_keras_checkpoint(path)
+            if kfound is not None:
+                params, step = import_keras_checkpoint(Path(kfound[0]),
+                                                       n_encoder=n_encoder)
+                return params, None, step
+            raise FileNotFoundError(f"no {prefix}_*.npz or saved_model_*.keras "
+                                    f"checkpoints in {path}")
         path = Path(found[0])
     m = re.match(rf"{re.escape(prefix)}_(\d+)\.npz$", path.name)
     step = int(m.group(1)) if m else 0
@@ -228,3 +249,84 @@ def load_checkpoint_rng(path: Union[str, Path], prefix: str = "saved_model"
     if rng_file is not None and rng_file.exists():
         return np.load(rng_file)
     return None
+
+
+def load_pytree_into(template: Any, path: Union[str, Path]) -> Any:
+    """The leaves of a .npz in the structure of ``template`` (a dict/list
+    tree), in the file's order; the leaf counts must agree, as they do for
+    a freshly built state of the same model. Leaves are numpy arrays."""
+    from ..train.core import tree_leaves, tree_unflatten
+
+    data = np.load(path, allow_pickle=False)
+    leaves = tree_leaves(template)
+    saved = [data[k] for k in data.files]
+    if len(saved) != len(leaves):
+        raise ValueError(f"checkpoint {path} has {len(saved)} leaves, template "
+                         f"has {len(leaves)}")
+    return tree_unflatten(template, saved)
+
+
+def save_model(model, main_path=None, inp_class_name=None, step=None,
+               print_message: bool = False) -> Optional[str]:
+    """Checkpoint an autoencoder under the reference's name
+    (``saving_loading_models.py:201-330``): ``model.save(step)``.
+    ``main_path`` defaults to the model's own ``p.main_path`` and must
+    match it otherwise. Returns the checkpoint path."""
+    if main_path is not None and str(main_path) != str(model.p.main_path):
+        raise ValueError(
+            f"save_model writes into the model's own main_path "
+            f"({model.p.main_path}); to save elsewhere set p.main_path "
+            f"first (got main_path={main_path})")
+    out = model.save(step=step)
+    if print_message and out is not None:
+        print(f"Saved {inp_class_name or type(model).__name__} checkpoint at {out}")
+    return out
+
+
+def load_model(autoencoder=None, checkpoint_path=None, trajs=None,
+               sparse: bool = False, dataset=None,
+               print_message: bool = False, submodel: str = None,
+               use_previous_model: bool = False, train_data=None,
+               device=None):
+    """Reload an autoencoder under the reference's name
+    (``saving_loading_models.py:333-626``) from a checkpoint file or run
+    directory.
+
+    ``autoencoder`` is the class to build, or None to take it from the
+    checkpoint's ``parameters.json`` (ADC keys mean the ADC). ``trajs`` (or
+    ``dataset``) feed an ADC, ``train_data`` (or ``dataset``) the others;
+    ``submodel="encoder"``/``"decoder"`` returns that bound callable;
+    ``device`` goes to the constructor (None means the card).
+    """
+    if checkpoint_path is None:
+        raise ValueError("load_model needs a checkpoint_path")
+    ckpt = Path(checkpoint_path)
+    directory = ckpt if ckpt.is_dir() else ckpt.parent
+    from ..train.adc_autoencoder import AngleDihedralCartesianEncoderMap
+    from ..train.autoencoder import EncoderMap
+
+    cls = autoencoder
+    if cls is None:
+        pfile = directory / "parameters.json"
+        keys = set(json.loads(pfile.read_text())) if pfile.exists() else set()
+        cls = (AngleDihedralCartesianEncoderMap
+               if "cartesian_cost_scale" in keys or "use_backbone_angles" in keys
+               else EncoderMap)
+    if issubclass(cls, AngleDihedralCartesianEncoderMap):
+        out = cls.from_checkpoint(trajs, checkpoint_path,
+                                  use_previous_model=use_previous_model,
+                                  dataset=dataset, device=device)
+    else:
+        if train_data is None and dataset is not None:
+            train_data = dataset
+        out = cls.from_checkpoint(checkpoint_path, train_data=train_data,
+                                  sparse=sparse,
+                                  use_previous_model=use_previous_model,
+                                  device=device)
+    if print_message:
+        print(f"Loaded {type(out).__name__} from {checkpoint_path}")
+    if submodel is not None:
+        if submodel not in ("encoder", "decoder"):
+            raise ValueError(f"submodel must be 'encoder' or 'decoder', got {submodel!r}")
+        return out.encode if submodel == "encoder" else out.decode
+    return out

@@ -30,10 +30,12 @@ __all__ = [
     "sig_value",
     "dsig_over_r",
     "periodic_distance",
+    "periodic_distance_np",
     "pairwise_dist",
     "pairwise_dist_periodic",
     "sqrt_guard",
     "component_plane_dists",
+    "triu_indices_mask",
 ]
 
 #: feature dim at/above which the full-matrix paths switch to the Gram
@@ -98,6 +100,28 @@ def dsig_over_r(r2, r, sig, a, b):
     t = (r_safe / sig) ** a
     out = b * c * t * (1.0 + c * t) ** (-b / a - 1.0) / torch.square(r_safe)
     return torch.where(zero, torch.zeros_like(out), out)
+
+
+def periodic_distance_np(a: np.ndarray, b: np.ndarray,
+                         periodicity: float = 2 * pi) -> np.ndarray:
+    """NumPy min-image distance ``min(|b-a|, P-|b-a|)`` (reference
+    ``misc/distances.py:91-110``).
+
+    Example:
+        >>> from encodermap_tpu_torch.ops.distances import periodic_distance_np
+        >>> round(float(periodic_distance_np(3.0, -3.0)), 6)
+        0.283185
+    """
+    d = np.abs(b - a)
+    return np.minimum(d, periodicity - d)
+
+
+def triu_indices_mask(n: int) -> np.ndarray:
+    """Boolean ``(n, n)`` mask of the strict upper triangle, the
+    reference's ``flat=True`` order (``misc/distances.py:235-242``)."""
+    mask = np.ones((n, n), dtype=bool)
+    mask[np.tril_indices(n)] = False
+    return mask
 
 
 def periodic_distance(a: torch.Tensor, b: torch.Tensor,

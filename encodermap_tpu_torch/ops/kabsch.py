@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["kabsch_weighted", "rmsd", "align_frames"]
+__all__ = ["kabsch_weighted", "rmsd", "align_one", "align_frames"]
 
 
 def kabsch_weighted(P: torch.Tensor, Q: torch.Tensor,
@@ -58,6 +58,16 @@ def rmsd(P: torch.Tensor, Q: torch.Tensor, W: Optional[torch.Tensor] = None
     """``(batch,)`` minimal RMSD of ``(batch, n, 3)`` sets after optimal
     superposition, with optional ``(n,)`` weights."""
     return kabsch_weighted(P, Q, W)[0]
+
+
+def align_one(frame: torch.Tensor, ref_sel: torch.Tensor,
+              atom_indices=None) -> torch.Tensor:
+    """Kabsch-fit one frame ``(n_atoms, 3)`` onto ``ref_sel`` on its
+    selected fit atoms and move the whole frame (the per-frame function
+    that the JAX package's ``align_frames`` maps over the frames)."""
+    fit = frame if atom_indices is None else frame[atom_indices]
+    _, R, t = kabsch_weighted(fit, ref_sel)
+    return frame @ R.transpose(-1, -2) + t
 
 
 def align_frames(xyz: torch.Tensor, ref: torch.Tensor,

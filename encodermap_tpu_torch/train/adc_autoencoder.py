@@ -411,6 +411,13 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
             self.trajs = trajs
         self.train_data = new
 
+    @staticmethod
+    def get_train_data_from_trajs(trajs: Any, p: ADCParameters) -> tuple:
+        """The CV tuple the model trains on (angles, dihedrals, cartesians,
+        distances[, side_dihedrals ...]) from a ``TrajEnsemble``, CV dict or
+        ``.CVs`` object (reference ``autoencoder.py:2032``)."""
+        return _extract_cvs(trajs, p)
+
     def train_for_references(self, subsample: int = 100, maxiter: int = 500
                              ) -> dict[str, float]:
         """Set the angle, dihedral and Cartesian cost references to the

@@ -73,6 +73,22 @@ from .core import (
 __all__ = ["Autoencoder", "EncoderMap", "DihedralEncoderMap"]
 
 
+class _SubModel:
+    """The encoder or decoder as a callable with keras's call conventions,
+    ``model(x)`` and ``model.predict(x)`` (counterpart of the JAX package's
+    ``_SubModel``)."""
+
+    def __init__(self, fn) -> None:
+        self._fn = fn
+
+    def __call__(self, x, *args, **kwargs):
+        return self._fn(x)
+
+    def predict(self, x, *args, **kwargs):
+        """keras's name for ``__call__`` (batching is internal)."""
+        return self._fn(x)
+
+
 def _tree_to_device(tree: Any, device: torch.device) -> Any:
     """float32 tensors on ``device`` from a tree of arrays or tensors."""
     def one(x):
@@ -167,6 +183,36 @@ class Autoencoder:
         self.custom_losses: list = []
         self.custom_metrics: list = []
 
+    @property
+    def encoder(self) -> _SubModel:
+        """:meth:`encode` as a submodel with keras's ``predict`` (reference
+        ``autoencoder.py:936``/``2161`` return the keras submodel)."""
+        return _SubModel(self.encode)
+
+    @property
+    def decoder(self) -> _SubModel:
+        """:meth:`decode` as a submodel with keras's ``predict`` (reference
+        ``autoencoder.py:941``/``2166``)."""
+        return _SubModel(self.decode)
+
+    def set_train_data(self, data: np.ndarray) -> None:
+        """Replace the training data by an array of the same width
+        (reference ``autoencoder.py:788``). NaN-padded data needs a model
+        built sparse (with its densifier)."""
+        data = np.asarray(data, np.float32)
+        if data.ndim != 2 or data.shape[1] != self.input_dim:
+            raise ValueError(f"new data has shape {data.shape}, the model takes "
+                             f"{self.input_dim} features")
+        nan_mask = np.isnan(data)
+        if nan_mask.any() and "densifier" not in self.state.params:
+            raise ValueError("the new data holds NaNs (sparse mode) but this model "
+                             "was built dense (no densifier layer); rebuild it on the "
+                             "NaN-padded data or with sparse=True")
+        self._nan_mask = nan_mask
+        if nan_mask.any():
+            self.sparse = True
+        self.train_data = data
+
     # ------------------------------------------------------------ extensions
     def add_callback(self, callback: Callback) -> None:
         """Append a :class:`Callback` dispatched at chunk granularity."""
@@ -240,6 +286,10 @@ class Autoencoder:
         p = cls._parameters_class().from_file(directory / "parameters.json")
         model_params, opt_npz, step = load_checkpoint(
             ckpt_path, n_encoder=len(p.n_neurons))
+        if step < 0:
+            # a reference .keras file named by time carries no step;
+            # parameters.json has it
+            step = p.current_training_step
         if step != p.current_training_step and not use_previous_model:
             raise ValueError(
                 f"Checkpoint step {step} disagrees with parameters.json "

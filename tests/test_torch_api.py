@@ -9,6 +9,18 @@ against its JAX counterpart: ``rmsd_numpy`` to 1e-5 nm on both values of
 the empty bases. ``train_streaming`` runs on every trainer from a batch
 source (its parity with the JAX package is in ``test_torch_streaming.py``)
 and refuses a bare path, which only the ADC reads itself.
+
+The surface of slice 6a against the JAX package: the top-level names
+(``MolData``, ``get_from_kondata``, ``load_project``, ``DaskFeaturizer``,
+``CustomAAsDict``, the subpackages, ``em.callbacks`` with the metric
+classes, ``__version__``); the ``misc`` helpers, equal to the JAX
+package's outputs exactly (numpy in both); the ``encoder``/``decoder``
+submodels with ``predict`` and ``set_train_data`` at the same weights
+(1e-5); ``save_model``/``load_model`` both ways and ``load_pytree_into``;
+``get_train_data_from_trajs`` exactly; and the ``loss_classes`` losses,
+gated on ``ENCODERMAP_TESTING`` and attached to an ADC from the same
+weights, over one step (every logged term to 1e-5 relative, the
+parameters after it to 1e-5).
 """
 
 import inspect
@@ -96,3 +108,221 @@ def test_train_streaming_waits_for_slice_4(tmp_path):
         hist = emap.train_streaming(iter(superbatches), n_steps=5)
         assert len(hist["loss"]) == 5 and np.isfinite(hist["loss"]).all()
         assert emap.state.step == 5
+
+
+# ------------------------------------------------------- slice 6a surface
+TOP_LEVEL = ["MolData", "get_from_kondata", "load_project", "DaskFeaturizer",
+             "CustomAAsDict", "features", "misc", "loading", "data", "parallel",
+             "models", "callbacks", "EncoderMapBaseCallback", "__version__"]
+
+
+@pytest.mark.parametrize("name", TOP_LEVEL)
+def test_top_level_names_match_jax(name):
+    import encodermap_tpu as emj
+
+    got, ref = getattr(emt, name), getattr(emj, name)
+    if name == "__version__":
+        assert got == ref
+    elif inspect.ismodule(ref):
+        assert inspect.ismodule(got)
+        assert got.__name__ == ref.__name__.replace("encodermap_tpu", "encodermap_tpu_torch")
+    elif name == "EncoderMapBaseCallback":
+        assert got is emt.Callback
+    elif name != "CustomAAsDict":
+        assert got.__name__ == ref.__name__
+        if callable(ref) and not inspect.isclass(ref):
+            want = [p.name for p in inspect.signature(ref).parameters.values()]
+            have = [p.name for p in inspect.signature(got).parameters.values()]
+            assert have[:len(want)] == want
+
+
+def test_callbacks_namespace_matches_jax():
+    import encodermap_tpu as emj
+
+    names = {n for n in dir(emj.callbacks) if not n.startswith("_")
+             and not inspect.ismodule(getattr(emj.callbacks, n))}
+    have = {n for n in dir(emt.callbacks) if not n.startswith("_")}
+    # the JAX module's image and TensorBoard callbacks wait for the
+    # plotting slice, with the helpers that only they import
+    later = {"ImageCallback", "TensorboardWriteBool", "annotations", "jax", "jnp", "np",
+             "Any", "Optional", "Path", "Union", "Callable", "dataclass", "field", "time",
+             "json", "math", "sys", "os", "warnings", "partial"}
+    assert names - have <= later
+    assert emt.callbacks.EncoderMapBaseCallback is emt.Callback
+    assert emt.callbacks.NoneInterruptCallback is emt.NaNInterrupt
+    assert emt.callbacks.EncoderMapBaseMetric is MT.EncoderMapBaseMetric
+
+
+def test_misc_helpers_match_jax(tmp_path):
+    import encodermap_tpu.misc as misc_j
+    import encodermap_tpu.ops.distances as dist_j
+    import encodermap_tpu_torch.misc as misc_t
+    import encodermap_tpu_torch.ops.distances as dist_t
+
+    for a, b in zip(misc_t.random_on_cube_edges(200, sigma=0.05, seed=3),
+                    misc_j.random_on_cube_edges(200, sigma=0.05, seed=3)):
+        np.testing.assert_array_equal(a, b)
+    assert misc_t.run_path(str(tmp_path)).endswith("run0")
+    assert misc_j.run_path(str(tmp_path)).endswith("run1")
+    assert misc_t.run_path(str(tmp_path)).endswith("run2")
+    for seq in ([], [1, 1, 1], [1, 2], "aab"):
+        assert misc_t.all_equal(seq) == misc_j.all_equal(seq)
+    rows = [{"name": "a", "value": 1}, {"name": "bb", "value": "x￺y"}]
+    for kw in ({}, {"colList": ["value"]}, {"sep": "￺"}, {"sep": "|"}):
+        assert misc_t.printTable(rows, **kw) == misc_j.printTable(rows, **kw)
+    pos = np.random.default_rng(0).normal(size=(16, 4, 3))
+    np.testing.assert_array_equal(misc_t.arbitrary_dihedral(pos),
+                                  misc_j.arbitrary_dihedral(pos))
+    assert misc_t.backbone_hydrogen_oxygen_crossproduct(np.zeros((2, 4, 9))) is None
+    with misc_t.temp_seed(7):
+        a = np.random.random(4)
+    with misc_j.temp_seed(7):
+        b = np.random.random(4)
+    np.testing.assert_array_equal(a, b)
+    x, y = np.linspace(-4, 4, 9), np.linspace(3, -3, 9)
+    np.testing.assert_array_equal(misc_t.periodic_distance_np(x, y),
+                                  dist_j.periodic_distance_np(x, y))
+    for n in (1, 2, 7):
+        np.testing.assert_array_equal(dist_t.triu_indices_mask(n),
+                                      dist_j.triu_indices_mask(n))
+
+
+@pytest.fixture()
+def emap_pair(tmp_path):
+    """A JAX EncoderMap trained 10 steps and the port loaded from its
+    checkpoint: the same weights."""
+    import encodermap_tpu as emj
+
+    data = np.random.default_rng(0).random((128, 5)).astype(np.float32)
+    kw = dict(main_path=str(tmp_path), n_neurons=[16, 16, 2], batch_size=16,
+              steps_per_scan=10, n_steps=10, periodicity=float("inf"), seed=2)
+    ej = emj.EncoderMap(emj.Parameters(**kw), data)
+    ej.train()
+    et = emt.EncoderMap.from_checkpoint(tmp_path, train_data=data, device="cpu")
+    return data, ej, et
+
+
+def test_encoder_decoder_submodels_match_jax(emap_pair):
+    data, ej, et = emap_pair
+    for sub in ("encoder", "decoder"):
+        x = data if sub == "encoder" else ej.encode(data)
+        got, ref = getattr(et, sub), getattr(ej, sub)
+        np.testing.assert_allclose(got(x), ref(x), atol=1e-5)
+        np.testing.assert_array_equal(got.predict(x), got(x))
+        np.testing.assert_array_equal(got(x), getattr(et, sub[:-1])(x))
+
+
+def test_set_train_data_matches_jax(emap_pair):
+    data, ej, et = emap_pair
+    new = np.random.default_rng(1).random((64, 5)).astype(np.float32)
+    et.set_train_data(new)
+    ej.set_train_data(new)
+    assert et.train_data.shape == (64, 5)
+    np.testing.assert_allclose(et.encode(), ej.encode(), atol=1e-5)
+    with pytest.raises(ValueError, match="features"):
+        et.set_train_data(new[:, :3])
+    with pytest.raises(AssertionError):  # the JAX package asserts instead
+        ej.set_train_data(new[:, :3])
+    holes = new.copy()
+    holes[0, 0] = np.nan
+    with pytest.raises(ValueError, match="dense"):
+        et.set_train_data(holes)
+    with pytest.raises(ValueError, match="dense"):
+        ej.set_train_data(holes)
+
+
+def test_save_model_and_load_model_both_ways(emap_pair, tmp_path):
+    import encodermap_tpu.misc.saving as SJ
+    import encodermap_tpu_torch.misc.saving as ST
+
+    data, ej, et = emap_pair
+    path = ST.save_model(et, step=10)
+    assert path.endswith("saved_model_10.npz")
+    with pytest.raises(ValueError, match="main_path"):
+        ST.save_model(et, main_path=str(tmp_path / "elsewhere"))
+    got = ST.load_model(checkpoint_path=path, train_data=data, device="cpu")
+    assert type(got).__name__ == "EncoderMap"
+    np.testing.assert_allclose(got.encode(data), ej.encode(data), atol=1e-5)
+    ref = SJ.load_model(checkpoint_path=path, train_data=data)
+    np.testing.assert_allclose(ref.encode(data), got.encode(data), atol=1e-5)
+    enc = ST.load_model(emt.EncoderMap, path, train_data=data, submodel="encoder",
+                        device="cpu")
+    np.testing.assert_array_equal(enc(data), got.encode(data))
+    # the Adam state into a template, as the JAX package's loader does it
+    opt = ST.load_pytree_into(et.state.opt_state,
+                              path.replace(".npz", ".opt.npz"))
+    assert int(opt["count"]) == 10 and opt["mu"].keys() == et.state.opt_state["mu"].keys()
+
+
+def test_adc_train_data_from_trajs_matches_jax():
+    import encodermap_tpu as emj
+    from tests.test_torch_adc import _cvs
+
+    data = _cvs()
+    for extra in ({}, {"use_sidechains": True}):
+        got = emt.AngleDihedralCartesianEncoderMap.get_train_data_from_trajs(
+            data, emt.ADCParameters(**extra))
+        ref = emj.AngleDihedralCartesianEncoderMap.get_train_data_from_trajs(
+            data, emj.ADCParameters(**extra))
+        assert len(got) == len(ref) == 4 + len(extra)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+
+
+LOSS_CLASSES = ["DihedralLoss", "AngleLoss", "SideDihedralLoss"]
+
+
+def test_loss_classes_are_gated(monkeypatch):
+    import encodermap_tpu_torch.loss_classes as LT
+
+    monkeypatch.delenv("ENCODERMAP_TESTING", raising=False)
+    for name in LOSS_CLASSES + ["EncoderMapBaseLoss", "ADCBaseLoss"]:
+        with pytest.raises(Exception, match="ENCODERMAP_TESTING"):
+            getattr(LT, name)()
+    monkeypatch.setenv("ENCODERMAP_TESTING", "True")
+    loss = LT.AngleLoss(emt.ADCParameters(n_neurons=[8, 8, 2]))
+    again = LT.AngleLoss.from_config(loss.get_config())
+    assert isinstance(again.p, emt.ADCParameters) and again.p.n_neurons == [8, 8, 2]
+    with pytest.raises(ValueError, match="use_sidechains"):
+        LT.SideDihedralLoss().attach(
+            type("A", (), {"p": emt.ADCParameters()})())
+
+
+@pytest.mark.parametrize("name", LOSS_CLASSES)
+def test_loss_classes_match_jax_over_one_step(monkeypatch, tmp_path, name):
+    import jax
+
+    import encodermap_tpu as emj
+    import encodermap_tpu.loss_classes as LJ
+    import encodermap_tpu_torch.loss_classes as LT
+    from tests.test_torch_adc import _cvs, _jax_indices, _kw
+
+    monkeypatch.setenv("ENCODERMAP_TESTING", "True")
+    data = _cvs()
+    kw = _kw(use_backbone_angles=True, use_sidechains=True, angle_cost_scale=1.0,
+             steps_per_scan=1, n_steps=1)
+    ej = emj.AngleDihedralCartesianEncoderMap(
+        data, emj.ADCParameters(main_path=str(tmp_path / "jax"), **kw))
+    et = emt.AngleDihedralCartesianEncoderMap(
+        data, emt.ADCParameters(main_path=str(tmp_path / "torch"), **kw),
+        model_params=jax.device_get(ej.state.params), device="cpu")
+    getattr(LJ, name)(ej.p).attach(ej)
+    getattr(LT, name)(et.p).attach(et)
+    idx = _jax_indices(ej.state.rng, len(data["central_angles"]), [1], kw["batch_size"])
+    hj, ht = ej.train(), et.train(index_stream=iter(idx))
+    term = getattr(LT, name).name
+    assert term in ht and hj.keys() == ht.keys()
+    for k in hj:
+        np.testing.assert_allclose(ht[k], np.asarray(hj[k]), rtol=1e-5, atol=1e-7, err_msg=k)
+    builtin = {"DihedralLoss": "dihedral_loss", "AngleLoss": "angle_loss",
+               "SideDihedralLoss": "side_dihedral_loss"}[name]
+    np.testing.assert_allclose(ht[term], ht[builtin], rtol=1e-6)
+    for a, b in zip(tree_leaves_np(et.state.params), jax.tree_util.tree_leaves(
+            jax.device_get(ej.state.params))):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-5)
+
+
+def tree_leaves_np(tree):
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    return [t.detach().numpy() for t in tree_leaves(tree)]

@@ -36,7 +36,12 @@ against the CPU to 1e-4 nm.
 Streaming: ``train_streaming`` on the card equals the in-memory chunk
 trainer fed the same batches bit for bit, and its uploads come from pinned
 memory on a stream of their own; ``ShardedFeaturizer`` on one NCCL rank
-equals the plain featurizer bit for bit."""
+equals the plain featurizer bit for bit.
+
+Analysis (slice 6a): ``compute_dssp`` on the card gives the CPU's strings
+(float64 on both, a 152-residue synthetic diubiquitin), and
+``pairwise_rmsd_matrix`` on the card matches the CPU within 1e-5 nm
+(float32 Kabsch fits in another summation order; trp-cage)."""
 
 import math
 
@@ -699,3 +704,38 @@ def test_sharded_featurizer_on_one_nccl_rank_equals_plain(cuda, tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("simplified", [True, False], ids=["3-state", "8-state"])
+def test_dssp_on_card_matches_cpu(cuda, simplified):
+    from chip_smoke import DIUBI, synthetic_protein
+    from encodermap_tpu_torch.ops import dssp
+    from encodermap_tpu_torch.ops.dssp import compute_dssp
+
+    top, xyz = synthetic_protein(DIUBI, 24, seed=5)
+
+    class Traj:
+        pass
+
+    traj = Traj()
+    traj.top, traj.xyz = top, xyz
+    got = compute_dssp(traj, simplified=simplified)
+    np.testing.assert_array_equal(got, compute_dssp(traj, simplified=simplified,
+                                                    device="cpu"))
+    R = top.n_residues
+    with pytest.MonkeyPatch.context() as mp:  # five frames a block
+        mp.setattr(dssp, "DSSP_BLOCK_BYTES", 5 * 12 * R * R * 8)
+        np.testing.assert_array_equal(got, compute_dssp(traj, simplified=simplified))
+
+
+def test_rmsd_matrix_on_card_matches_cpu(cuda):
+    from chip_smoke import TRP_CAGE, synthetic_protein
+    from encodermap_tpu_torch.misc.clustering import pairwise_rmsd_matrix
+
+    _, xyz = synthetic_protein(TRP_CAGE, 40, seed=3)
+    got = pairwise_rmsd_matrix(xyz)
+    want = pairwise_rmsd_matrix(xyz, device="cpu")
+    assert got.shape == (40, 40)
+    assert float(np.abs(got - want).max()) <= 1e-5
+    assert float(np.abs(got - got.T).max()) <= 1e-5
+    assert float(np.abs(np.diag(got)).max()) <= 1e-5

@@ -31,8 +31,14 @@ standard amino acid once), written as PDB + XTC and read by both packages.
   differs by 1.9e-5 at the same weights, and the updates carry that into
   every term. From the fourth step on, Adam lifts the two packages'
   rounding further (1.5e-4 in the angle loss at the fifth), so three steps
-  are compared. ``generate`` onto the topology agrees at the same weights
-  to 1e-4 nm.
+  are compared. ``generate`` onto the topology (``"topology"`` and
+  ``"mdtraj"``) agrees at the same weights to 1e-4 nm, for the sidechain
+  model and for the reconstruct-sidechain model.
+* A multimer model's decoder gives each protein's central dihedrals, one
+  block per protein, while a multimer topology's central chain runs
+  through every protein, three dihedrals more per joint: both packages
+  refuse that generation alike (the same exception and message), at the
+  same weights and latent points on a homodimer topology.
 """
 
 import jax
@@ -224,8 +230,11 @@ def test_adc_from_traj_ensemble_matches_jax_step_for_step(peptide, tmp_path, mod
     for a, b in zip(jax.tree_util.tree_leaves(tree_t),
                     jax.tree_util.tree_leaves(jax.device_get(ej.state.params))):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-4)
-    if mode == "sidechains":
-        # generation onto the topology at the same (JAX's) weights
+    if mode in ("sidechains", "reconstruct"):
+        # generation onto the topology at the same (JAX's) weights; in
+        # reconstruct mode the topology backend rotates the decoded central
+        # dihedrals and the mdtraj backend the side dihedrals too (decode's
+        # fourth output)
         same = emt.AngleDihedralCartesianEncoderMap.from_checkpoint(
             trajs_t, tmp_path / "jax", device="cpu", read_only=True)
         z = ej.encode()[:4]
@@ -236,3 +245,38 @@ def test_adc_from_traj_ensemble_matches_jax_step_for_step(peptide, tmp_path, mod
         got = same.generate(z, backend="mdtraj")
         ref = ej.generate(z, backend="mdtraj")
         assert float(np.abs(got - ref).max()) <= 1e-4
+
+
+def test_multimer_onto_a_topology_is_refused_as_in_jax(tmp_path):
+    from chip_smoke import TRP_CAGE, dimer_cvs
+    from encodermap_tpu_torch.data.topology import Topology
+
+    cvs = dimer_cvs(64, device="cpu")
+    kw = dict(n_neurons=[16, 16, 2], batch_size=16, steps_per_scan=2, n_steps=2, seed=1,
+              multimer_training="homogeneous_transformation", multimer_lengths=[20, 20],
+              use_backbone_angles=True, use_sidechains=True, cartesian_pwd_start=1,
+              cartesian_pwd_step=3)
+    ej = emj.AngleDihedralCartesianEncoderMap(
+        cvs, emj.ADCParameters(main_path=str(tmp_path / "jax"), **kw))
+    ej.train()
+    et = emt.AngleDihedralCartesianEncoderMap.from_checkpoint(cvs, tmp_path / "jax",
+                                                              device="cpu", read_only=True)
+    z = ej.encode()[:4]
+    np.testing.assert_allclose(et.encode()[:4], z, atol=1e-5)
+    # a trp-cage homodimer: two chains of the synthetic trp-cage
+    mono, xyz = synthetic_protein(TRP_CAGE, 1, seed=2)
+    top = Topology()
+    for chain in range(2):
+        for r in mono.residues:
+            res = top.add_residue(r.name, r.resSeq, chain)
+            for a in r.atoms:
+                top.add_atom(a.name, a.element, res)
+    write_pdb(tmp_path / "dimer.pdb", top, np.concatenate([xyz, xyz + 3.0], axis=1))
+    pdb = str(tmp_path / "dimer.pdb")
+    for backend, tops in (("topology", (emt.SingleTraj(pdb), emj.SingleTraj(pdb))),
+                          ("mdtraj", (pdb, pdb))):
+        with pytest.raises(Exception) as ref:
+            ej.generate(z, backend=backend, top=tops[1])
+        with pytest.raises(type(ref.value)) as got:
+            et.generate(z, backend=backend, top=tops[0])
+        assert str(got.value) == str(ref.value) and "114" in str(got.value)
