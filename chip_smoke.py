@@ -33,9 +33,14 @@ BASELINE config 5: ``train_streaming`` over a million-frame memmap at
 stream, held bit for bit to the in-memory chunk trainer), the ADC streaming
 diUbi CV superbatches, and a one-rank NCCL group that trains config 5 with
 ``mesh_shape={"dp": 1}`` through the data-parallel gather path and runs
-``ShardedFeaturizer``. It holds the sigmoid-loss kernels against their
-plain versions at each ADC width and at config 5's, and checks what comes
-out. Prints one JSON
+``ShardedFeaturizer``. The observability leg trains config 1 with
+TensorBoard events, the model summary and a latent-histogram image written
+by a callback, reads the event file back (CRCs, tags, steps, float32
+values equal to the JSONL rows), trains the ADC with TensorBoard on,
+profiles two chunks (the cluster kernel named in the trace), and times
+``block_timer`` and ``function`` on the card. It holds the sigmoid-loss
+kernels against their plain versions at each ADC width and at config 5's,
+and checks what comes out. Prints one JSON
 line per kernel set before the last line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is non-zero and no result line is printed.
@@ -47,10 +52,12 @@ from __future__ import annotations
 import json
 import math
 import re
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -2134,6 +2141,305 @@ def phase_distributed(em, fs, _build, run_dir: Path, stream: dict, feat: dict) -
     return dict(counts=counts)
 
 
+# ------------------------------------------------- slice 6b: observability
+def _crc32c_bitwise(data: bytes) -> int:
+    """CRC-32C one bit at a time: this script's own check of the records,
+    independent of the package's table-driven code."""
+    c = 0xFFFFFFFF
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 & -(c & 1))
+    return c ^ 0xFFFFFFFF
+
+
+def _masked(data: bytes) -> int:
+    c = _crc32c_bitwise(data)
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _pb_fields(buf: bytes) -> dict:
+    """A protobuf message's fields: ``{number: [values]}`` (varints as ints,
+    fixed64/fixed32 and length-delimited fields as bytes)."""
+    out: dict = {}
+    i = 0
+
+    def varint(i):
+        n = shift = 0
+        while True:
+            b = buf[i]
+            n |= (b & 0x7F) << shift
+            i += 1
+            shift += 7
+            if not b & 0x80:
+                return n, i
+
+    while i < len(buf):
+        key, i = varint(i)
+        wire = key & 7
+        if wire == 0:
+            val, i = varint(i)
+        elif wire == 1:
+            val, i = buf[i:i + 8], i + 8
+        elif wire == 2:
+            n, i = varint(i)
+            val, i = buf[i:i + n], i + n
+        elif wire == 5:
+            val, i = buf[i:i + 4], i + 4
+        else:
+            raise ValueError(f"wire type {wire}")
+        out.setdefault(key >> 3, []).append(val)
+    return out
+
+
+def read_events(path) -> tuple:
+    """``(scalars, images, n_records)`` of a TensorBoard event file, read
+    with this script's own TFRecord and protobuf decoding: scalars
+    ``{(tag, step): float32}``, images ``{(tag, step): (width, height)}``.
+    Every record's two masked CRC-32Cs are checked; a bad one raises."""
+    raw = Path(path).read_bytes()
+    scalars, images = {}, {}
+    i = n_rec = 0
+    while i < len(raw):
+        head = raw[i:i + 8]
+        (n,) = struct.unpack("<Q", head)
+        payload = raw[i + 12:i + 12 + n]
+        check(struct.unpack("<I", raw[i + 8:i + 12])[0] == _masked(head)
+              and struct.unpack("<I", raw[i + 12 + n:i + 16 + n])[0] == _masked(payload),
+              f"{path}: record {n_rec} fails its CRC")
+        i += 16 + n
+        n_rec += 1
+        event = _pb_fields(payload)
+        if n_rec == 1:
+            check(event.get(3) == [b"brain.Event:2"], f"{path}: no file_version event first")
+        step = event.get(2, [0])[0]
+        for summary in event.get(5, []):
+            for value in _pb_fields(summary).get(1, []):
+                v = _pb_fields(value)
+                tag, tensor = v[1][0].decode(), _pb_fields(v[8][0])
+                if tensor[1][0] == 7:  # DT_STRING: [width, height, png]
+                    w, h, png = tensor[8]
+                    check(struct.unpack(">II", png[16:24]) == (int(w), int(h)),
+                          f"{path}: image {tag} at {step}: size fields disagree with its PNG")
+                    images[tag, step] = (int(w), int(h))
+                else:
+                    scalars[tag, step] = np.frombuffer(tensor[4][0], "<f4")[0]
+    return scalars, images, n_rec
+
+
+def png_gray(img: np.ndarray) -> bytes:
+    """An 8-bit greyscale PNG of a 2-D uint8 array, built with zlib and
+    struct."""
+    h, w = img.shape
+    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def latent_histogram_png(latent: torch.Tensor, bins: int = 96) -> bytes:
+    """A 2-D histogram of the latent, computed on its device, as a PNG."""
+    lo, hi = latent.min(0).values, latent.max(0).values
+    cell = ((latent - lo) / (hi - lo + 1e-12) * bins).long().clamp(0, bins - 1)
+    counts = torch.bincount(cell[:, 1] * bins + cell[:, 0], minlength=bins * bins)
+    img = (255.0 * counts / counts.max()).to(torch.uint8).reshape(bins, bins).flip(0)
+    return png_gray(img.cpu().numpy())
+
+
+def phase_observability(em, fs, _build, run_dir: Path) -> dict:
+    """Slice 6b on the card: cube training at BASELINE config 1's width
+    ([128,128,2], B=256, the cluster kernel; 1,000 steps in two 500-step
+    chunks) with TensorBoard events, the model summary and a user callback
+    writing a PNG histogram of the latent computed on the card; the event
+    file read back (CRCs, tags and steps and float32 values equal to the
+    JSONL rows, image sizes); layer statistics through a writer of their
+    own; a 50-step ADC at trp-cage scale with TensorBoard on (the sigmoid
+    kernels twice a step); ``profile_steps`` with the cluster kernel named
+    in the trace; ``block_timer`` against CUDA events; ``function`` compiled
+    on the card. Returns the leg's launch counts."""
+    import gzip
+    import importlib.util
+
+    from encodermap_tpu_torch.misc import summaries as S
+    from encodermap_tpu_torch.misc.profiling import block_timer, profile_steps, trace
+    from encodermap_tpu_torch.models import sequential as seq
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    t_leg = time.perf_counter()
+    _build.launch_counts.clear()
+    data = em.create_n_cube(3, points_along_edge=500, seed=0)[0]
+    cube_dir = run_dir / "cube"
+    p = em.Parameters(main_path=str(cube_dir), n_neurons=[128, 128, 2], batch_size=256,
+                      steps_per_scan=500, n_steps=1000, seed=0, periodicity=float("inf"),
+                      tensorboard=True, summary_step=10, write_summary=True)
+    emap = em.EncoderMap(p, data)
+    sample = torch.as_tensor(data[:8192], device="cuda")
+
+    class LatentHistogram(em.Callback):
+        """Writes a PNG of the latent's 2-D histogram at every chunk end."""
+
+        def on_chunk_end(self, first_step, metrics):
+            with torch.no_grad():
+                png = latent_histogram_png(seq.encode(emap.state.params, emap.p, sample))
+            S.write_user_image(png, first_step + len(metrics["loss"]), p.main_path,
+                               name="latent_histogram", writer=emap._metrics_writer)
+
+    emap.add_callback(LatentHistogram())
+    before = dict(_build.launch_counts)
+    t0 = time.perf_counter()
+    hist = emap.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    runs = {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()}
+    check(runs.get("fused_train_cluster", 0) == 2 and runs.get("fused_train", 0) == 0,
+          f"observability: train() launched {runs}, expected the cluster kernel twice")
+    check(hist["loss"][-100:].mean() < hist["loss"][:100].mean(),
+          "observability: the loss did not fall")
+
+    events = list((cube_dir / "train").glob("events.out.tfevents.*"))
+    check(len(events) == 1, f"observability: {len(events)} event files")
+    ev_bytes = events[0].stat().st_size
+    scalars, images, n_rec = read_events(events[0])
+    rows = [json.loads(line) for line in (cube_dir / "train_metrics.jsonl").read_text().splitlines()]
+    want = {(k, r["step"]): np.float32(v) for r in rows for k, v in r.items() if k != "step"}
+    check(sorted(scalars) == sorted(want) and {s for _, s in want} == set(range(10, 1001, 10)),
+          "observability: event tags and steps differ from the JSONL rows")
+    check(all(scalars[k].tobytes() == want[k].tobytes() for k in want),
+          "observability: event values differ from the JSONL rows as float32")
+    size = struct.unpack(">II", latent_histogram_png(seq.encode(
+        emap.state.params, emap.p, sample).detach())[16:24])
+    check(images == {("latent_histogram", 500): size, ("latent_histogram", 1000): size},
+          f"observability: image events {images}")
+    n_params = sum(t.numel() for t in tree_leaves(emap.state.params))
+    summary = (cube_dir / "complete_model_summary.txt").read_text().splitlines()
+    check(summary[-1] == f"Total params: {n_params:,}",
+          f"observability: model summary ends {summary[-1]!r}, {n_params:,} parameters")
+    log(f"[observability] train() {train_s:.2f} s, 1000 steps; event file {ev_bytes} bytes, "
+        f"{n_rec} records, {len(scalars)} scalars equal to the JSONL rows as float32, "
+        f"images {images}; model summary: {summary[-1]}")
+
+    # the writer alone: the same 100 rows with and without the event file
+    row_ms = {}
+    for tb in (False, True):
+        w = S.MetricsWriter(run_dir / f"rows_{tb}", tensorboard=tb)
+        t0 = time.perf_counter()
+        for r in rows:
+            w.write_scalars(r["step"], {k: v for k, v in r.items() if k != "step"})
+        row_ms[tb] = (time.perf_counter() - t0) * 1e3 / len(rows)
+        w.close()
+    stats = S.MetricsWriter(run_dir / "stats", tensorboard=True)
+    S.add_layer_summaries(stats, 1000, emap.state.params)
+    S.histogram_summary(stats, 1000, emap.state.params)
+    stats.close()
+    got, _, _ = read_events(next((run_dir / "stats" / "train").glob("events.out.tfevents.*")))
+    leaves = dict(S.param_paths(emap.state.params))
+    check(len(got) == 4 * len(leaves), f"observability: {len(got)} layer statistics")
+    for name, leaf in leaves.items():
+        arr = leaf.detach().cpu().numpy()
+        check(got[f"weights/{name}/mean", 1000] == np.float32(arr.mean())
+              and got[f"weights/{name}/std", 1000] == np.float32(arr.std()),
+              f"observability: histogram_summary of {name}")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    try:
+        S.image_summary(np.zeros((4, 2), np.float32), 0, run_dir)
+        raised = False
+    except ImportError:
+        raised = True
+    check(raised != has_mpl, "observability: image_summary should raise ImportError exactly "
+          "where matplotlib is missing")
+    log(f"[observability] writer host time per row of {len(rows[0]) - 1} scalars: "
+        f"{row_ms[True]:.4f} ms with the event file, {row_ms[False]:.4f} ms JSONL only; "
+        f"{len(got)} layer statistics read back; image_summary "
+        f"{'raises ImportError (no matplotlib here)' if raised else 'renders (matplotlib here)'}")
+
+    # the ADC at trp-cage scale with TensorBoard on: kernels 2-3 under the writer
+    cvs = adc_cvs(20, 4096)
+    ap = adc_params(em, run_dir / "adc", 50, 25, tensorboard=True, summary_step=5)
+    before = dict(_build.launch_counts)
+    adc_train(em, _build, cvs, ap, "observability adc", 2)  # sets the counts to 0
+    _build.launch_counts.update(before)
+    adc_scalars, _, _ = read_events(next((run_dir / "adc" / "train").glob("events.out.tfevents.*")))
+    adc_rows = [json.loads(line) for line in
+                (run_dir / "adc" / "train_metrics.jsonl").read_text().splitlines()]
+    check(sorted(adc_scalars) == sorted((k, r["step"]) for r in adc_rows for k in r if k != "step")
+          and len(adc_rows) == 10, "observability adc: event tags and steps differ from the JSONL")
+
+    # profiling: the cluster kernel in the trace, and the trace's cost on a chunk
+    t0 = time.perf_counter()
+    logdir = profile_steps(emap, n_steps=2, logdir=run_dir / "profile")
+    prof_s = time.perf_counter() - t0
+    traces = list(Path(logdir).glob("*.trace.json.gz"))
+    check(len(traces) == 1, f"observability: {len(traces)} profiler traces")
+    names = [e.get("name", "") for e in json.loads(gzip.decompress(traces[0].read_bytes()))
+             ["traceEvents"] if e.get("cat") == "kernel"]
+    n_cluster = sum("fused_train_cluster_kernel" in n for n in names)
+    check(n_cluster == 2, f"observability: the trace names the cluster kernel {n_cluster} "
+          f"times among {len(names)} device kernels")
+    trainer, dev_data, state = emap._get_trainer(), emap._device_data(), emap.state
+
+    def chunk():
+        nonlocal state
+        state, metrics = trainer(state, dev_data)
+        torch.cuda.synchronize()
+
+    plain_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        chunk()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    traced_ms = []
+    with trace(run_dir / "profile_overhead", device="cuda"):
+        for _ in range(2):
+            t0 = time.perf_counter()
+            chunk()
+            traced_ms.append((time.perf_counter() - t0) * 1e3)
+    emap.state = state
+    log(f"[observability] profile_steps(n_steps=2) {prof_s:.2f} s with the trace's export; "
+        f"the trace names fused_train_cluster_kernel {n_cluster} times among {len(names)} "
+        f"device kernels; a 500-step chunk {min(plain_ms):.2f} ms without the trace, "
+        f"{min(traced_ms):.2f} ms inside it (host clock, after a CUDA sync)")
+
+    x = torch.randn(4096, 4096, device="cuda") / 64.0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with block_timer("block_timer 10 matmuls", sync=x) as out:
+        start.record()
+        y = x
+        for _ in range(10):
+            y = y @ x
+        end.record()
+    dev_ms = start.elapsed_time(end)
+    check(out["seconds"] * 1e3 >= 0.95 * dev_ms,
+          f"observability: block_timer {out['seconds'] * 1e3:.2f} ms is short of the CUDA "
+          f"events' {dev_ms:.2f} ms")
+
+    def f(a, b):
+        return torch.tanh(a) * b + a.sum()
+
+    a, b = torch.randn(10000, device="cuda"), torch.randn(10000, device="cuda")
+    t0 = time.perf_counter()
+    compiled = em.function(f)(a, b)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    plain = em.function(f, debug=True)(a, b)
+    err = float((compiled - plain).abs().max())
+    # a.sum() in another order: float32 rounding of the sum, ~1e-5 relative
+    check(err <= 1e-5 * float(plain.abs().max()),
+          f"observability: function() differs from its debug form by {err:.3g}")
+    counts = dict(_build.launch_counts)
+    leg_s = time.perf_counter() - t_leg
+    log(f"[observability] block_timer {out['seconds'] * 1e3:.2f} ms against CUDA events "
+        f"{dev_ms:.2f} ms; function() compiled and ran in {compile_s:.2f} s, {err:.2e} from "
+        f"its debug form; leg launches {counts}; leg wall {leg_s:.1f} s "
+        f"({smi_line()})")
+    return dict(counts=counts, wall=leg_s, event_bytes=ev_bytes, row_ms=row_ms,
+                chunk_ms=(min(plain_ms), min(traced_ms)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -2169,6 +2475,13 @@ def main() -> int:
         launches = {"fused_train_cluster": sum(t.get("fused_train_cluster", 0) for t in trains),
                     "fused_train": sum(t.get("fused_train", 0) for t in trains)
                     + sum(g["launches"] for g in grid.values())}
+        # before any other torch.profiler session: on the card machine CUPTI
+        # stops recording kernels for the rest of a process after a session
+        # of ~300k device operations (PERF.md §7), and this leg's trace must
+        # name the cluster kernel
+        obs = phase_observability(em, fs, _build, Path(tmp) / "observability")
+        log(f"[leg] phase_observability: {obs['wall']:.1f} s wall")
+        launches["fused_train_cluster"] += obs["counts"].get("fused_train_cluster", 0)
         general = phase_general(em, _build, Path(tmp) / "general",
                                 router[3, 16384][0])
         gen1024 = general_step(em, 1024)
@@ -2199,6 +2512,7 @@ def main() -> int:
         adc_legs.append(phase_distributed(em, fs, _build, Path(tmp) / "distributed", stream,
                                           feat))
         log(f"[leg] phase_distributed: {time.perf_counter() - t0:.1f} s wall")
+        adc_legs.append(obs)
 
     main_sig = sig["D=3 euclid"]
     check(all(n > 0 for n in launches.values()), f"fused kernels' main-path launches {launches}")

@@ -21,7 +21,13 @@ one process per device, ``parallel/``). Slice 6a adds GRO, DCD and TRR
 files (``data/formats.py``), secondary structure (``ops/dssp.py``) and RMSD
 clustering (``misc/clustering.py``) on the card, ``MolData``, the
 reference's ``.keras`` checkpoints (``misc/keras_import.py``) and
-``load_project`` (``kondata.py``).
+``load_project`` (``kondata.py``). Slice 6b adds observability: TensorBoard
+event files written by the port itself (``tensorboard=True``; no
+TensorFlow needed), latent images (``add_images_to_tensorboard``), layer
+statistics, the model summary, ``torch.profiler`` traces
+(``misc/profiling.py``), ``function`` (``torch.compile`` with a plain debug
+form), and the host-side plotting, interactive selection and dashboard
+pages (``plot``; matplotlib, ipywidgets and dash imported only where used).
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed::
 
@@ -40,6 +46,10 @@ Entry points run on the CUDA card unless ``device="cpu"`` is passed::
 
     from encodermap_tpu_torch.ops.dssp import compute_dssp
     ss = compute_dssp(trajs[0])            # (frames, residues) of H/E/C
+
+    p = em.Parameters(tensorboard=True)    # events in main_path/train/
+    from encodermap_tpu_torch.misc.profiling import profile_steps
+    profile_steps(emap, n_steps=2, logdir="profile")   # *.pt.trace.json.gz
 
     trajs.save("ens.h5")                   # out of core (needs h5py)
     adc = em.AngleDihedralCartesianEncoderMap.from_ensemble_h5("ens.h5", em.ADCParameters())
@@ -88,6 +98,9 @@ from .train.callbacks import (
 
 __all__ = [
     "__version__",
+    "plot",
+    "function",
+    "InteractivePlotting",
     "data",
     "loading",
     "misc",
@@ -141,6 +154,16 @@ def __getattr__(name):
 
     if name == "features":
         return importlib.import_module(".loading.features", __name__)
+    if name == "plot":
+        return importlib.import_module(".plot", __name__)
+    if name == "function":
+        from .misc.function_def import function
+
+        return function
+    if name == "InteractivePlotting":
+        from .plot.interactive import InteractivePlotting
+
+        return InteractivePlotting
     if name == "EncoderMapBaseCallback":
         return Callback
     if name == "callbacks":

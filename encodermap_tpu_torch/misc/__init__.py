@@ -1,8 +1,8 @@
 # encodermap_tpu_torch/misc/__init__.py
-"""Host-side utilities of the port: toy data, checkpoints, metrics logs,
-and the names the reference's ``em.misc`` exports (counterpart of
-``encodermap_tpu/misc``; its summaries' TensorBoard and image writers and
-``plot_model`` wait for the plotting slice)."""
+"""Host-side utilities of the port: toy data, checkpoints, metrics logs
+and TensorBoard events, images, and the names the reference's ``em.misc``
+exports (counterpart of ``encodermap_tpu/misc``). Profiling and
+``function`` live in ``misc/profiling.py`` and ``misc/function_def.py``."""
 
 from ..ops.backmap import (
     guess_amide_H,
@@ -28,6 +28,7 @@ from .misc import (
     create_n_cube,
     get_full_common_str_and_ref,
     match_files,
+    plot_model,
     printTable,
     random_on_cube_edges,
     run_path,
@@ -42,7 +43,12 @@ from .saving import (
     save_model,
     save_pytree,
 )
-from .summaries import MetricsWriter
+from .summaries import (
+    MetricsWriter,
+    add_layer_summaries,
+    histogram_summary,
+    image_summary,
+)
 
 __all__ = [
     "load_model",
@@ -65,10 +71,14 @@ __all__ = [
     "split_and_reverse_dihedrals",
     "temp_seed",
     "MetricsWriter",
+    "add_layer_summaries",
+    "histogram_summary",
+    "image_summary",
     "pairwise_dist",
     "pairwise_dist_periodic",
     "periodic_distance",
     "periodic_distance_np",
+    "plot_model",
     "printTable",
     "random_on_cube_edges",
     "run_path",

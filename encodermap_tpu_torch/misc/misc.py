@@ -2,11 +2,12 @@
 """The hypercube toy dataset, the fallback training data of EncoderMap,
 the file-matching helpers of the trajectory loaders, and the reference's
 small host helpers (cube-edge points, run directories, text tables,
-dihedrals of point quadruplets, a temporary numpy seed).
+dihedrals of point quadruplets, a temporary numpy seed, a model's layer
+diagram).
 
-Counterpart of ``encodermap_tpu/misc/misc.py`` (all of it but
-``plot_model``, which waits for the plotting slice). It is numpy, copied
-line for line, so the same seed gives bit-identical data in both packages.
+Counterpart of ``encodermap_tpu/misc/misc.py``. It is numpy, copied line
+for line, so the same seed gives bit-identical data in both packages;
+``plot_model`` draws with matplotlib, imported inside it.
 """
 
 from __future__ import annotations
@@ -180,6 +181,52 @@ def match_files(trajs, tops, common_str):
             tops_out.append(top_hits[0])
         common_str_out.append(cs)
     return tops_out, common_str_out
+
+
+def plot_model(model, input_dim=None):
+    """Draw a model's layer stack as a box diagram (the analog of the
+    reference's keras-graphviz ``em.misc.plot_model``,
+    ``misc/misc.py:492-520``); returns the saved PNG's path.
+
+    Accepts a trainer (anything with a ``plot_network`` method) or a
+    :class:`~encodermap_tpu_torch.models.sequential.SequentialModel`.
+    """
+    if hasattr(model, "plot_network"):
+        return model.plot_network()
+    p = getattr(model, "p", None) or getattr(model, "parameters", None)
+    if p is None:
+        raise TypeError(f"plot_model needs a trainer or SequentialModel, got {model!r}")
+    out = _session_tmpfile(".png")
+    draw_layer_stack(p.n_neurons, input_dim, f"{type(model).__name__} layer stack", out)
+    return out
+
+
+def draw_layer_stack(n_neurons, input_dim, title: str, path) -> None:
+    """Save the box diagram of an autoencoder's layer widths (input, the
+    encoder's ``n_neurons``, the mirrored decoder, output) to ``path``,
+    offscreen, without touching matplotlib's process-global backend."""
+    from matplotlib.backends.backend_agg import FigureCanvasAgg
+    from matplotlib.figure import Figure
+    from matplotlib.patches import Rectangle
+
+    dims = list([input_dim] if input_dim is not None else [])
+    dims += list(n_neurons) + list(n_neurons[-2::-1])
+    if input_dim is not None:
+        dims += [input_dim]
+    fig = Figure(figsize=(max(6, len(dims)), 3))
+    FigureCanvasAgg(fig)
+    ax = fig.subplots()
+    for i, d in enumerate(dims):
+        ax.add_patch(Rectangle((i, -0.4), 0.6, 0.8, fc="#4878cf", ec="k"))
+        ax.text(i + 0.3, 0, str(d), ha="center", va="center", color="w", fontsize=9)
+        if i:
+            ax.annotate("", xy=(i, 0), xytext=(i - 0.4, 0),
+                        arrowprops=dict(arrowstyle="->"))
+    ax.set_xlim(-0.5, len(dims))
+    ax.set_ylim(-1, 1)
+    ax.axis("off")
+    ax.set_title(title)
+    fig.savefig(path, dpi=120, bbox_inches="tight")
 
 
 def _session_tmpfile(suffix: str) -> str:

@@ -44,6 +44,9 @@ __all__ = [
 
 #: path of the optax Adam state inside ``(clip_state, (adam_state, lr_state))``
 _ADAM_PATH = [["s", 1], ["s", 0]]
+#: path of ``lr_state``'s count when the learning rate is a schedule
+#: (optax's ``ScaleByScheduleState``; ``encodermap_tpu/train/core.py:62-77``)
+_SCHEDULE_PATH = [["s", 1], ["s", 1], ["a", "count"]]
 
 
 def _to_numpy(x: Any) -> np.ndarray:
@@ -75,12 +78,16 @@ def save_pytree(tree: Any, path: Union[str, Path]) -> str:
     return str(path)
 
 
-def _opt_tree(opt_state: dict) -> dict[str, np.ndarray]:
-    """The Adam state under the JAX package's optax paths and leaf order."""
-    out = {json.dumps(_ADAM_PATH + [["a", "count"]]):
-           np.asarray(opt_state["count"], np.int32)}
+def _opt_tree(opt_state: dict, scheduled: bool = False) -> dict[str, np.ndarray]:
+    """The Adam state under the JAX package's optax paths and leaf order;
+    ``scheduled`` adds the schedule's count (equal to Adam's), the last
+    leaf of optax's ``chain(clip, adam(schedule))`` state."""
+    count = np.asarray(opt_state["count"], np.int32)
+    out = {json.dumps(_ADAM_PATH + [["a", "count"]]): count}
     for name in ("mu", "nu"):
         out.update(_flatten(opt_state[name], _ADAM_PATH + [["a", name]]))
+    if scheduled:
+        out[json.dumps(_SCHEDULE_PATH)] = count
     return out
 
 
@@ -132,15 +139,19 @@ def save_checkpoint(
     parameters: Any = None,
     prefix: str = "saved_model",
     rng: Any = None,
+    scheduled: bool = False,
 ) -> str:
     """Write ``{prefix}_{step}.npz`` (+ ``.opt.npz``, ``.rng.npy``) and
-    refresh ``parameters.json`` with the current step."""
+    refresh ``parameters.json`` with the current step. ``scheduled``: the
+    optimizer's learning rate is a schedule, whose optax state holds a
+    count of its own."""
     main_path = Path(main_path)
     main_path.mkdir(parents=True, exist_ok=True)
     ckpt = main_path / f"{prefix}_{step}.npz"
     save_pytree(params, ckpt)
     if opt_state is not None:
-        np.savez(main_path / f"{prefix}_{step}.opt.npz", **_opt_tree(opt_state))
+        np.savez(main_path / f"{prefix}_{step}.opt.npz",
+                 **_opt_tree(opt_state, scheduled))
     if rng is not None:
         np.save(main_path / f"{prefix}_{step}.rng.npy",
                 np.asarray(rng, np.uint32))

@@ -35,7 +35,13 @@ training set on its device, where the JAX package shards it (ROADMAP.md
 Queue 3). Checkpoints, the metrics log and the progress output come from
 rank 0 only.
 
-Not ported yet: TensorBoard output, images, and ``tp > 1``.
+Observability: ``p.tensorboard=True`` mirrors the metrics rows to a
+TensorBoard event file in ``main_path/train/`` (written by the port itself,
+``misc/event_file.py``), :meth:`Autoencoder.add_images_to_tensorboard`
+adds latent images, and ``p.tensorboard or p.write_summary`` writes
+``complete_model_summary.txt`` when the model is built.
+
+Not ported yet: ``tp > 1``.
 """
 
 from __future__ import annotations
@@ -182,6 +188,30 @@ class Autoencoder:
         self.callbacks: list[Callback] = []
         self.custom_losses: list = []
         self.custom_metrics: list = []
+        self._maybe_write_summary()
+
+    def _maybe_write_summary(self) -> Optional[str]:
+        """``main_path/complete_model_summary.txt`` when ``p.tensorboard or
+        p.write_summary``, as the reference writes keras's
+        ``model.summary()`` (``models/models.py:1051-1059``): one row per
+        parameter under the JAX package's path names, with its shape and
+        size, and the total (``encodermap_tpu/train/autoencoder.py:
+        329-350``)."""
+        from ..misc.summaries import param_paths
+
+        if self.read_only or not is_primary() or not (
+                self.p.tensorboard or getattr(self.p, "write_summary", False)):
+            return None
+        lines = [f"Model: {type(self).__name__}", "-" * 60]
+        total = 0
+        for name, w in param_paths(self.state.params):
+            n = int(np.prod(w.shape))
+            total += n
+            lines.append(f"{name:<40} {str(tuple(w.shape)):<16} {n:>10,}")
+        lines += ["-" * 60, f"Total params: {total:,}"]
+        out = Path(self.p.main_path) / "complete_model_summary.txt"
+        out.write_text("\n".join(lines) + "\n")
+        return str(out)
 
     @property
     def encoder(self) -> _SubModel:
@@ -217,6 +247,33 @@ class Autoencoder:
     def add_callback(self, callback: Callback) -> None:
         """Append a :class:`Callback` dispatched at chunk granularity."""
         self.callbacks.append(callback)
+
+    def add_images_to_tensorboard(self, data: Optional[Any] = None,
+                                  image_step: Optional[int] = None,
+                                  max_size: int = 10000,
+                                  additional_fns: Optional[list] = None) -> None:
+        """Write latent scatter and density images every ``image_step``
+        steps (default ``p.summary_step``; the reference's method of the
+        same name, ``autoencoder.py:1031``). ``additional_fns`` are user
+        callables ``fn(lowd) -> Figure | png bytes | array`` written beside
+        them (its customization tutorial 03). Rendering needs matplotlib."""
+        from .callbacks import ImageCallback
+
+        step = image_step if image_step is not None else self.p.summary_step
+        self.callbacks.append(ImageCallback(self, step, data=data, max_points=max_size,
+                                            additional_fns=additional_fns))
+
+    def plot_network(self) -> Optional[str]:
+        """Draw the layer stack to ``main_path/network.png`` (the analog of
+        the reference's keras ``plot_model`` call, ``autoencoder.py:1094``);
+        needs matplotlib."""
+        from ..misc.misc import draw_layer_stack
+
+        out = Path(self.p.main_path) / "network.png"
+        draw_layer_stack(self.p.n_neurons, getattr(self, "input_dim", None),
+                         f"{type(self).__name__} layer stack", out)
+        print(f"network diagram saved to {out}")
+        return str(out)
 
     def add_loss(self, loss_fn, name: Optional[str] = None) -> None:
         """Add a custom loss ``fn(params, batch) -> 0-d tensor`` to the
@@ -275,7 +332,8 @@ class Autoencoder:
         step = self.state.step if step is None else int(step)
         return save_checkpoint(self.p.main_path, self.state.params, step,
                                opt_state=self.state.opt_state,
-                               parameters=self.p, rng=self.state.rng)
+                               parameters=self.p, rng=self.state.rng,
+                               scheduled=self._lr_schedule is not None)
 
     @classmethod
     def _load_checkpoint_checked(cls, ckpt_path: Path,

@@ -3,9 +3,9 @@
 
 Counterpart of ``encodermap_tpu/train/callbacks.py`` (after the reference's
 Keras callbacks, ``callbacks/callbacks.py``): ProgressBar, CheckpointSaver,
-EarlyStop and NaNInterrupt. In a multi-process run the progress output and
-the checkpoints come from rank 0 only (``callbacks.py:94-96`` there).
-``ImageCallback`` is not ported yet.
+EarlyStop, NaNInterrupt and ImageCallback. In a multi-process run the
+progress output, the checkpoints and the images come from rank 0 only
+(``callbacks.py:94-96`` there).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ __all__ = [
     "CheckpointSaver",
     "EarlyStop",
     "NaNInterrupt",
+    "ImageCallback",
 ]
 
 
@@ -164,3 +165,60 @@ class NaNInterrupt(Callback):
                   f"stopping training.")
             return False
         return None
+
+
+class ImageCallback(Callback):
+    """Write latent scatter and density images every ``image_step`` steps
+    (reference ``callbacks.py:333-516``; ``encodermap_tpu/train/
+    callbacks.py:190-260``); ``<= 0`` disables it.
+
+    ``additional_fns`` are user callables ``fn(lowd) -> image`` run at every
+    image step with the latent projection (the reference's
+    ``additional_fns``, its customization tutorial 03). Each may return a
+    matplotlib Figure, raw PNG bytes or an ``(H, W[, C])`` array, written as
+    ``<fn name>_{step}.png`` and to the metrics writer. A function that
+    raises is reported and skipped; training goes on.
+    """
+
+    def __init__(self, autoencoder: Any, image_step: int,
+                 data: Optional[np.ndarray] = None, max_points: int = 10000,
+                 additional_fns: Optional[list] = None) -> None:
+        self.autoencoder = autoencoder
+        self.image_step = image_step
+        self.data = data
+        self.max_points = max_points
+        self.additional_fns = list(additional_fns or [])
+        self._last = -1
+
+    def on_chunk_end(self, first_step: int, metrics: dict) -> None:
+        if self.image_step <= 0 or not is_primary():
+            return
+        last = first_step + len(next(iter(metrics.values())))
+        due = (last // self.image_step) * self.image_step
+        if not (due > self._last and due > first_step):
+            return
+        from ..misc.summaries import image_summary, write_user_image
+
+        data = self.data if self.data is not None else self.autoencoder.train_data
+        if isinstance(data, (tuple, list)):
+            # ADC data: a tuple of CV arrays of different widths, sliced by
+            # frames member by member
+            data = tuple(np.asarray(d)[:self.max_points] for d in data)
+        else:
+            data = np.asarray(data)[:self.max_points]
+        latent = self.autoencoder.encode(data)
+        writer = getattr(self.autoencoder, "_metrics_writer", None)
+        main_path = self.autoencoder.p.main_path
+        image_summary(latent, last, main_path, writer=writer,
+                      max_points=self.max_points)
+        for k, fn in enumerate(self.additional_fns):
+            fn_name = getattr(fn, "__name__", "")
+            if not fn_name.isidentifier():  # lambdas, partials, ...
+                fn_name = f"custom_{k}"
+            try:
+                write_user_image(fn(np.asarray(latent)), last, main_path,
+                                 name=fn_name, writer=writer)
+            except Exception as e:  # a broken user function must not stop training
+                print(f"ImageCallback: additional_fns[{k}] failed "
+                      f"({type(e).__name__}: {e}); skipping.")
+        self._last = due

@@ -739,3 +739,89 @@ def test_rmsd_matrix_on_card_matches_cpu(cuda):
     assert float(np.abs(got - want).max()) <= 1e-5
     assert float(np.abs(got - got.T).max()) <= 1e-5
     assert float(np.abs(np.diag(got)).max()) <= 1e-5
+
+
+# ------------------------------------------------ slice 6b: observability
+def test_tensorboard_events_on_card_read_back(cuda, tmp_path):
+    """Training on the card with ``tensorboard=True``: the event file's
+    records pass their CRCs (``chip_smoke.read_events``, bitwise CRC-32C)
+    and its scalars equal the JSONL rows as float32; the model summary
+    totals the parameters."""
+    import json
+
+    import encodermap_tpu_torch as em
+    from chip_smoke import read_events
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    data = em.create_n_cube(3, points_along_edge=100, seed=0)[0]
+    p = em.Parameters(main_path=str(tmp_path), n_neurons=[64, 64, 2],
+                      periodicity=float("inf"), n_steps=200, steps_per_scan=100,
+                      batch_size=256, seed=0, tensorboard=True, summary_step=20)
+    emap = em.EncoderMap(p, data)
+    emap.train()
+    events = list((tmp_path / "train").glob("events.out.tfevents.*"))
+    assert len(events) == 1
+    scalars, images, n_records = read_events(events[0])
+    rows = [json.loads(line) for line in (tmp_path / "train_metrics.jsonl").read_text().splitlines()]
+    want = {(k, r["step"]): np.float32(v) for r in rows for k, v in r.items() if k != "step"}
+    assert sorted(scalars) == sorted(want) and n_records == 1 + len(rows) and not images
+    assert all(scalars[k].tobytes() == want[k].tobytes() for k in want)
+    total = sum(t.numel() for t in tree_leaves(emap.state.params))
+    assert (tmp_path / "complete_model_summary.txt").read_text().splitlines()[-1] == \
+        f"Total params: {total:,}"
+
+
+def test_profiler_trace_names_the_cluster_kernel(cuda, tmp_path):
+    """``profile_steps`` traces the card: one traced chunk of the cluster
+    kernel appears once among the trace's device kernels."""
+    import gzip
+    import json
+
+    import encodermap_tpu_torch as em
+    from encodermap_tpu_torch.misc.profiling import profile_steps
+
+    data = em.create_n_cube(3, points_along_edge=100, seed=0)[0]
+    p = em.Parameters(main_path=str(tmp_path), n_neurons=[64, 64, 2],
+                      periodicity=float("inf"), n_steps=50, steps_per_scan=50,
+                      batch_size=256, seed=0)
+    emap = em.EncoderMap(p, data, read_only=True)
+    logdir = profile_steps(emap, n_steps=1, logdir=tmp_path / "profile")
+    (trace,) = list((tmp_path / "profile").glob("*.trace.json.gz"))
+    assert str(trace.parent) == logdir
+    names = [e.get("name", "") for e in json.loads(gzip.decompress(trace.read_bytes()))
+             ["traceEvents"] if e.get("cat") == "kernel"]
+    assert sum("fused_train_cluster_kernel" in n for n in names) == 1
+    assert emap.state.step == 100
+
+
+def test_block_timer_waits_for_the_card(cuda):
+    """``block_timer`` with a CUDA tensor stops its clock after the queued
+    kernels finish: at least the CUDA events' time between them."""
+    from encodermap_tpu_torch.misc.profiling import block_timer
+
+    x = torch.randn(2048, 2048, device=cuda) / 45.0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with block_timer("matmuls", sync=[x]) as out:
+        start.record()
+        y = x
+        for _ in range(20):
+            y = y @ x
+        end.record()
+    assert out["seconds"] * 1e3 >= 0.95 * start.elapsed_time(end)
+
+
+def test_function_compiles_on_card(cuda):
+    """``function`` compiles with ``torch.compile`` (Inductor, Triton on the
+    card) and agrees with its plain ``debug=True`` form."""
+    import encodermap_tpu_torch as em
+
+    def f(a, b):
+        return torch.tanh(a) * b + a.sum()
+
+    a, b = torch.randn(4096, device=cuda), torch.randn(4096, device=cuda)
+    plain = em.function(f, debug=True)(a, b)
+    assert em.function(f, debug=True) is f
+    got = em.function(f)(a, b)
+    assert got.device == a.device
+    assert float((got - plain).abs().max()) <= 1e-5 * float(plain.abs().max())

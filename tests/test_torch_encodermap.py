@@ -13,6 +13,7 @@ same to 1e-6 (the same float32 products in two libraries)."""
 
 import json
 import math
+import struct
 
 import jax
 import numpy as np
@@ -206,8 +207,20 @@ def test_dihedral_generate_and_gaps(tmp_path):
     quads = np.vstack([top.indices_phi, top.indices_psi])
     got = geom.compute_dihedrals(torch.tensor(gen.xyz, dtype=torch.float64), quads).numpy()
     assert float(np.abs((got - out + np.pi) % (2 * np.pi) - np.pi).max()) <= 1e-3
-    with pytest.raises(NotImplementedError):
-        MetricsWriter(tmp_path, tensorboard=True)
+    # tensorboard=True writes an event file (the port's own writer): its
+    # first record's length and payload carry valid masked CRCs
+    from encodermap_tpu_torch.misc.event_file import masked_crc32c
+
+    writer = MetricsWriter(tmp_path, tensorboard=True)
+    writer.write_scalars(5, {"loss": 1.5})
+    writer.close()
+    events = list((tmp_path / "train").glob("events.out.tfevents.*"))
+    assert len(events) == 1
+    raw = events[0].read_bytes()
+    (n,) = struct.unpack("<Q", raw[:8])
+    assert struct.unpack("<I", raw[8:12])[0] == masked_crc32c(raw[:8])
+    assert struct.unpack("<I", raw[12 + n:16 + n])[0] == masked_crc32c(raw[12:12 + n])
+    assert b"brain.Event:2" in raw[12:12 + n] and b"loss" in raw[16 + n:]
     # a mesh needs one process per device; the tensor-parallel axis waits
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         emt.EncoderMap(emt.Parameters(main_path=str(tmp_path), mesh_shape={"dp": 2}),
