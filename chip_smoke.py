@@ -33,7 +33,14 @@ BASELINE config 5: ``train_streaming`` over a million-frame memmap at
 stream, held bit for bit to the in-memory chunk trainer), the ADC streaming
 diUbi CV superbatches, and a one-rank NCCL group that trains config 5 with
 ``mesh_shape={"dp": 1}`` through the data-parallel gather path and runs
-``ShardedFeaturizer``. The observability leg trains config 1 with
+``ShardedFeaturizer``. The tensor-parallel leg starts two processes on the
+card as a ``dp=1 x tp=2`` gloo mesh (``python3 chip_smoke.py --tp-worker
+<rank> <dir>`` is one of them), trains a ``shard_params_tp`` state of
+config 1 for 100 steps and one trp-cage ADC step, and holds both to the
+same steps on one device. ``phase_adc`` also holds the trained ADC's step
+gradients to the float64 oracle ``ops/adc_adjoint.py::hand_adc_step`` on
+the card (the kernels within 3x of the plain version's distance from
+it). The observability leg trains config 1 with
 TensorBoard events, the model summary and a latent-histogram image written
 by a callback, reads the event file back (CRCs, tags, steps, float32
 values equal to the JSONL rows), trains the ADC with TensorBoard on,
@@ -1070,6 +1077,115 @@ def adc_kernel_check(fs, inputs: dict, tag: str, reps: int = 5,
     return out
 
 
+def _oracle_hyper(p, n_ca: int) -> dict:
+    """``hand_adc_step``'s hyperparameters of an ADC's parameters (CA
+    costs: ``cartesian_pwd_start=1, step=3``; a soft start of ``(None,
+    None)`` is none)."""
+    return dict(
+        periodicity=p.periodicity, dihedral_cost_scale=p.dihedral_cost_scale,
+        dihedral_cost_reference=p.dihedral_cost_reference,
+        angle_cost_scale=p.angle_cost_scale or 0.0,
+        angle_cost_reference=p.angle_cost_reference,
+        side_dihedral_cost_scale=p.side_dihedral_cost_scale,
+        side_dihedral_cost_reference=p.side_dihedral_cost_reference,
+        cartesian_cost_scale=p.cartesian_cost_scale,
+        cartesian_cost_reference=p.cartesian_cost_reference,
+        soft_start=(None if None in tuple(p.cartesian_cost_scale_soft_start)
+                    else tuple(p.cartesian_cost_scale_soft_start)),
+        cartesian_distance_cost_scale=p.cartesian_distance_cost_scale,
+        cartesian_dist_sig_parameters=p.cartesian_dist_sig_parameters,
+        distance_cost_scale=p.distance_cost_scale, dist_sig_parameters=p.dist_sig_parameters,
+        center_cost_scale=p.center_cost_scale, l2_reg_constant=p.l2_reg_constant,
+        ca_start=1, ca_step=3, pair_iu=np.triu_indices(n_ca, k=1))
+
+
+def _rel_err_to(x: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((x.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+def adc_oracle_check(emap, batch: tuple, step: int, tag: str) -> dict:
+    """The float64 oracle (``ops/adc_adjoint.py::hand_adc_step``) against
+    the ADC step on the card at ``emap``'s weights: the parameter
+    gradients of (a) the step in float32 with the sigmoid-loss kernels and
+    (b) the same step with their plain versions, each against (c) the
+    oracle in float64 on the card; ``err(a, c) <= 3 err(b, c)`` for every
+    parameter tensor. Then the latent gradient of the two sigmoid costs
+    alone, kernels and plain against ``_sigmoid_loss_and_latgrad``. The
+    batch is ``(angles, dihedrals, cartesians, distances, side)`` on the
+    card."""
+    from encodermap_tpu_torch import losses as L
+    from encodermap_tpu_torch.models import adc
+    from encodermap_tpu_torch.ops import adc_adjoint
+    from encodermap_tpu_torch.ops.distances import pairwise_dist
+    from encodermap_tpu_torch.ops.fused_sigmoid import sigmoid_loss_general
+    from encodermap_tpu_torch.train.core import tree_leaves, tree_unflatten
+
+    p = emap.p
+    route = L.fused_or_reference
+
+    def plain(h, l, params, periodicity, **_):
+        return sigmoid_loss_general(h, l, params, periodicity)
+
+    def port(kernels: bool) -> tuple:
+        L.fused_or_reference = route if kernels else plain
+        try:
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in tree_leaves(emap.state.params)]
+            terms = emap._loss_terms(tree_unflatten(emap.state.params, leaves), batch, step)
+            loss = sum(v for k, v in terms.items() if k not in emap._metrics_only)
+            return torch.autograd.grad(loss, leaves), float(loss.detach())
+        finally:
+            L.fused_or_reference = route
+
+    (g_a, loss_a), (g_b, loss_b) = port(True), port(False)
+    params = emap.state.params
+    f64 = [[l[n].double() for l in params[part]] for part in ("encoder", "decoder")
+           for n in ("kernel", "bias")]
+    ang, dih, cart, dist, side = (x.double() for x in batch)
+    gew, geb, gdw, gdb, metrics = adc_adjoint.hand_adc_step(
+        f64[0], f64[1], f64[2], f64[3], ang, dih, cart[:, 1::3], dist, side, float(step),
+        hyper=_oracle_hyper(p, cart[:, 1::3].shape[1]))
+    g_c = tree_leaves({part: [{"bias": b, "kernel": w} for w, b in zip(ws, bs)]
+                       for part, ws, bs in (("encoder", gew, geb), ("decoder", gdw, gdb))})
+    errs = [(_rel_err_to(a, c), _rel_err_to(b, c)) for a, b, c in zip(g_a, g_b, g_c)]
+    loss_rel = abs(loss_a - float(metrics["loss"])) / abs(float(metrics["loss"]))
+    log(f"[{tag} oracle] parameter gradients of the step against hand_adc_step in float64 "
+        f"(max |x - f64| / max |f64| per tensor, kernels / plain float32): "
+        + ", ".join(f"{a:.2e}/{b:.2e}" for a, b in errs)
+        + f"; loss {loss_a:.6f} (kernels), {loss_b:.6f} (plain), {float(metrics['loss']):.6f} "
+        f"(float64), {loss_rel:.2e} relative")
+    check(all(a <= 3 * b for a, b in errs), f"{tag} oracle: the kernels' step parts from "
+          f"float64 more than 3x the plain version's: {errs}")
+    check(loss_rel <= 1e-4, f"{tag} oracle: loss {loss_a} against float64 {metrics['loss']}")
+
+    with torch.no_grad():
+        latent = adc.encode(params, p, batch).contiguous()
+    pairs = pairwise_dist(batch[2][:, 1::3], flat=True)
+    enc_inp = torch.cat([batch[0], batch[1], batch[4]], dim=1)
+
+    def lat_grad(kernels: bool) -> torch.Tensor:
+        L.fused_or_reference = route if kernels else plain
+        try:
+            lat = latent.clone().requires_grad_(True)
+            cost = L.cartesian_distance_loss(pairs, lat, p) + L.distance_loss(enc_inp, lat, p)
+            return torch.autograd.grad(cost, lat)[0]
+        finally:
+            L.fused_or_reference = route
+
+    lat64 = latent.double()
+    _, g1 = adc_adjoint._sigmoid_loss_and_latgrad(
+        pairs.double(), lat64, p.cartesian_dist_sig_parameters, p.cartesian_distance_cost_scale)
+    _, g2 = adc_adjoint._sigmoid_loss_and_latgrad(
+        enc_inp.double(), lat64, p.dist_sig_parameters, p.distance_cost_scale,
+        periodicity=p.periodicity)
+    lat_k, lat_p = (_rel_err_to(lat_grad(k), g1 + g2) for k in (True, False))
+    log(f"[{tag} oracle] latent gradient of the two sigmoid costs against "
+        f"_sigmoid_loss_and_latgrad in float64: kernels {lat_k:.2e}, plain float32 {lat_p:.2e} "
+        f"(relative to its largest entry)")
+    check(lat_k <= 3 * lat_p, f"{tag} oracle: latent gradient {lat_k} against plain {lat_p}")
+    return dict(errs=errs, lat=(lat_k, lat_p), loss_rel=loss_rel)
+
+
 def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int) -> tuple:
     """``train()`` with the launch counts set to 0 just before and read just
     after: the sigmoid kernels must launch ``per_step`` times a step each,
@@ -1099,7 +1215,8 @@ def phase_adc(em, fs, _build, run_dir: Path) -> dict:
     4096 frames, three chunks of 100 steps, the Cartesian cost soft-started
     over steps 0-50. Checks the kernels' launches, the loss, the soft start,
     generate's bond lengths and a checkpoint round trip; times the step and
-    its stages; holds the kernels at this leg's shapes."""
+    its stages; holds the kernels at this leg's shapes, and the step's
+    gradients against the float64 oracle (``adc_oracle_check``)."""
     from encodermap_tpu_torch import losses as L
     from encodermap_tpu_torch.ops.backmap import backmap
     from encodermap_tpu_torch.ops.distances import pairwise_dist
@@ -1144,6 +1261,7 @@ def phase_adc(em, fs, _build, run_dir: Path) -> dict:
     inputs = adc_kernel_inputs(emap, cvs, rows)
     kern = adc_kernel_check(fs, inputs, "adc", reps=20)
     b = [torch.tensor(cvs[k][rows], device="cuda") for k in CV_KEYS]
+    oracle = adc_oracle_check(emap, tuple(b), emap.state.step, "adc")
     ang = b[0].clone().requires_grad_(True)
     dh = b[1].clone().requires_grad_(True)
     out = backmap(b[3], ang, dh)
@@ -1163,7 +1281,7 @@ def phase_adc(em, fs, _build, run_dir: Path) -> dict:
         f"ms; dense Cartesian cost fwd+bwd {ms_dense:.4f} ms; sigmoid kernels fwd+bwd "
         + ", ".join(f"D={D} {t:.4f} ms" for D, t in sig.items())
         + f"; step {ms:.3f} ms, device busy {busy:.3f} ms")
-    return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall, oracle=oracle)
 
 
 def phase_adc_matrix(em, fs, _build, run_dir: Path) -> dict:
@@ -2141,6 +2259,342 @@ def phase_distributed(em, fs, _build, run_dir: Path, stream: dict, feat: dict) -
     return dict(counts=counts)
 
 
+# -------------------------------------------- slice 6c: tensor parallelism
+#: the tp leg's EncoderMap: config 1 at full width, B=256, 100 steps
+TP_STEPS = 100
+TP_EM_KW = dict(n_neurons=[128, 128, 2], batch_size=256, steps_per_scan=TP_STEPS,
+                n_steps=TP_STEPS, seed=0, periodicity=float("inf"))
+#: two ranks on the one card: dp=1 x tp=2
+TP_MESH = {"dp": 1, "tp": 2}
+
+
+def leaf_arrays(tree) -> list:
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    return [t.detach().cpu().numpy() for t in tree_leaves(tree)]
+
+
+def _tp_run(em, model, idx: np.ndarray, _build) -> dict:
+    """``model``'s state through ``shard_params_tp``, then ``train()`` on
+    the injected indices with the launch counts set to 0 just before and
+    read just after; the whole parameters and moments, this rank's own
+    leaves, the history, the counts, and the tp step's time (the chunk
+    trainer again, CUDA-synchronized host clock)."""
+    from encodermap_tpu_torch import parallel
+
+    sharded = parallel.shard_params_tp(model.state.params, model.mesh)
+    model.state = model.state.replace(params=sharded, opt_state=model.optimizer.init(sharded))
+    dev_data = model._device_data()
+    steps = idx.shape[0]
+    trainer = model._get_trainer(steps)
+    trainer(model.state, dev_data, torch.as_tensor(idx[:1], device=model.device))  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    hist = model.train(index_stream=iter([idx]))
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    t0 = time.perf_counter()
+    trainer(model.state, dev_data, torch.as_tensor(idx, device=model.device))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    st = model.state
+    out = {f"p{i}": a for i, a in enumerate(leaf_arrays(parallel.unshard_params_tp(st.params)))}
+    out.update({f"mu{i}": a for i, a in enumerate(
+        leaf_arrays(parallel.unshard_params_tp(st.opt_state["mu"])))})
+    out.update({f"l{i}": a for i, a in enumerate(leaf_arrays(st.params))})
+    out.update({f"h_{k}": np.asarray(v) for k, v in hist.items()})
+    out.update({f"count_{k}": np.array(v) for k, v in counts.items()})
+    out["ms"] = np.array(ms)
+    out["kinds"] = np.array([getattr(l, "kind", "") for l in st.params["encoder"]])
+    out["replicated"] = np.array(replicated_leaves(st.params))
+    return out
+
+
+def replicated_leaves(tree) -> list:
+    """Per leaf (``tree_leaves`` order): whether every tp rank holds it
+    whole (a row-parallel layer's bias does)."""
+    from encodermap_tpu_torch.nn import TPLayer
+
+    if isinstance(tree, TPLayer):
+        return ["tp" not in tree.specs[k] for k in sorted(tree)]
+    if isinstance(tree, dict):
+        return [f for k in sorted(tree) for f in replicated_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [f for v in tree for f in replicated_leaves(v)]
+    return [True]
+
+
+def tp_worker(rank: int, run_dir: Path) -> int:
+    """One rank of ``phase_tensor_parallel``: joins the two-rank group
+    (gloo: both ranks share the one card), builds the trainers with
+    ``mesh_shape={"dp": 1, "tp": 2}``, shards their states and trains from
+    the parent's weights on its indices; results to ``rank<r>.npz``."""
+    import torch.distributed as dist
+
+    import encodermap_tpu_torch as em
+    from encodermap_tpu_torch import parallel
+    from encodermap_tpu_torch.misc.saving import load_pytree
+    from encodermap_tpu_torch.ops import _build
+
+    spec = dict(np.load(run_dir / "spec.npz"))
+    parallel.initialize(init_method=f"file://{run_dir / 'rendezvous'}", world_size=2,
+                        rank=rank, device="cuda")
+    try:
+        emap = em.EncoderMap(em.Parameters(main_path=str(run_dir / f"em_rank{rank}"),
+                                           mesh_shape=TP_MESH, **json.loads(str(spec["em_kw"]))),
+                             spec["em_data"], model_params=load_pytree(run_dir / "em_init.npz"),
+                             device="cuda")
+        res = {f"em_{k}": v for k, v in _tp_run(em, emap, spec["em_idx"], _build).items()}
+        res["backend"] = np.array(dist.get_backend())
+        res["mesh"] = np.array([emap.mesh["dp"].size(), emap.mesh["tp"].size()])
+        cvs = {k: spec[f"adc_{k}"] for k in CV_KEYS}
+        adc = em.AngleDihedralCartesianEncoderMap(
+            cvs, adc_params(em, run_dir / f"adc_rank{rank}", 1, 1, mesh_shape=TP_MESH),
+            model_params=load_pytree(run_dir / "adc_init.npz"), device="cuda")
+        res.update({f"adc_{k}": v for k, v in _tp_run(em, adc, spec["adc_idx"], _build).items()})
+        res["allreduce_ms"] = np.array(_allreduce_ms(emap.mesh.get_group("tp")))
+        np.savez(run_dir / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _one_device_steps(em, model, idx: np.ndarray) -> dict:
+    """The reference: the same steps on one device, one step a chunk, with
+    each step's gradient read from the Adam first moments (for the
+    rounding-noise rule), and its history."""
+    moments: list = []
+
+    class Moments(em.Callback):
+        def on_chunk_end(self, first_step, metrics):
+            moments.append(leaf_arrays(model.state.opt_state["mu"]))
+
+    model.add_callback(Moments())
+    hist = model.train(index_stream=iter([i[None] for i in idx]))
+    out = {f"p{i}": a for i, a in enumerate(leaf_arrays(model.state.params))}
+    out.update({f"mu{i}": a for i, a in enumerate(leaf_arrays(model.state.opt_state["mu"]))})
+    out.update({f"h_{k}": np.asarray(v) for k, v in hist.items()})
+    prev = [np.zeros_like(m) for m in moments[0]]
+    for k, mus in enumerate(moments):
+        out.update({f"g{k}_{i}": (m - 0.9 * q) / 0.1 for i, (m, q) in enumerate(zip(mus, prev))})
+        prev = mus
+    return out
+
+
+def hold_same_steps(got: dict, want: dict, tag: str, moments: bool = True,
+                    steps_from: dict = None, loss_rtol: float = 1e-5, loss_atol: float = 1e-7,
+                    lr: float = 1e-3) -> tuple:
+    """Every logged term to ``loss_rtol`` relative (``loss_atol``
+    absolute), the first moments (the gradients) to 1e-4 of the model's
+    largest (unless ``moments`` is False: the caller holds the gradients
+    otherwise), every parameter to 1e-5 absolute, with ROADMAP's
+    rounding-noise rule for Adam read at each step: a weight whose gradient
+    was below 1e-6 of its tensor's largest, or below 100 times Adam's eps
+    (1e-5), at some step took a step set by rounding noise there (Adam
+    steps by ``lr g / (|g| + eps)``, whose slope there turns a gradient's
+    last bits, ~1e-6 on the card's ADC step, into more than 1e-5 of a
+    step) and is held to its steps (``lr`` each); the weights this excuses
+    (off by more than 1e-5) may be at most 1 % of the model's. Returns
+    (worst loss rel, worst moment rel, worst param abs of the others,
+    weights excused). The per-step gradients ``g<step>_<leaf>`` come from
+    ``steps_from`` (default ``want``), a one-device run of one step a
+    chunk (``_one_device_steps``)."""
+    steps = len(want["h_loss"])
+    worst_loss = 0.0
+    for k in (k for k in want if k.startswith("h_")):
+        err = np.abs(got[k] - want[k])
+        ok = np.all(err <= loss_atol + loss_rtol * np.abs(want[k]))
+        worst_loss = max(worst_loss, float((err / np.maximum(np.abs(want[k]), 1e-30)).max()))
+        check(bool(ok), f"{tag}: {k} off the one-device run by {float(err.max()):.3e}")
+    mus = [k for k in want if k.startswith("mu")]
+    scale = max(float(np.abs(want[k]).max()) for k in mus)
+    worst_mu = max(float(np.abs(got[k] - want[k]).max()) for k in mus) / scale
+    check(not moments or worst_mu <= 1e-4,
+          f"{tag}: first moments off by {worst_mu:.3e} of the largest")
+    worst_p, flagged, total = 0.0, 0, 0
+    for k in (k for k in want if k.startswith("p")):
+        grads = [np.abs((steps_from or want)[f"g{s}_{k[1:]}"]) for s in range(steps)]
+        noise = np.any([(g < 1e-6 * g.max()) | (g < 1e-5) for g in grads], axis=0)
+        err = np.abs(got[k] - want[k])
+        flagged, total = flagged + int((noise & (err > 1e-5)).sum()), total + noise.size
+        worst_p = max(worst_p, float(err[~noise].max()) if (~noise).any() else 0.0)
+        check(bool(np.all(err[~noise] <= 1e-5)), f"{tag}: {k} off by {float(err[~noise].max()):.3e}")
+        check(bool(np.all(err[noise] <= 2 * lr * steps)), f"{tag}: {k} noise weights off")
+    check(flagged <= 0.01 * total, f"{tag}: {flagged} of {total} weights excused as rounding "
+          f"noise")
+    return worst_loss, worst_mu, worst_p, flagged
+
+
+def _allreduce_ms(group, reps: int = 100) -> float:
+    """ms of one all-reduce of a 256 x 128 float32 tensor on the card over
+    ``group``: the row-parallel layer's partial product at [128,128,2],
+    B=256 (CUDA-synchronized host clock, after 5 untimed)."""
+    import torch.distributed as dist
+
+    y = torch.randn(256, 128, device="cuda")
+    for _ in range(5):
+        dist.all_reduce(y, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(y, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_tensor_parallel(em, fs, _build, run_dir: Path) -> dict:
+    """Tensor parallelism on the one card: two processes, a ``dp=1 x
+    tp=2`` mesh over a gloo group (NCCL refuses two ranks on one card;
+    gloo stages every collective through the host), ``file://``
+    rendezvous in the run directory, every tensor on ``cuda:0``. Each rank
+    shards the state (``shard_params_tp``) and trains config 1 at full
+    width ([128,128,2], cube, B=256) for 100 steps, then one trp-cage ADC
+    step (phase_adc's configuration), from this process's weights and
+    indices; both are held to the same steps on one device (the general
+    route, which the mesh takes too). The checkpoint the sharded run
+    writes holds the whole tensors and loads on one device. The ranks'
+    launches of the sigmoid kernels come back here. The step time is the
+    price of host-staged collectives on a shared card, not a speed for
+    tensor parallelism; each rank also times one all-reduce of the
+    row-parallel partial product on the ``tp`` group."""
+    import os
+
+    from encodermap_tpu_torch.misc.saving import load_checkpoint, load_pytree, save_pytree
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    tag = "tp"
+    smi = smi_line()
+    run_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(5)
+    data = em.create_n_cube(3, points_along_edge=500, seed=0)[0]
+    em_idx = rng.integers(0, len(data), (TP_STEPS, TP_EM_KW["batch_size"]))
+    cvs = adc_cvs(20, 1024, seed=3)
+    adc_idx = rng.integers(0, 1024, (1, 256))
+    ref_em = em.EncoderMap(em.Parameters(main_path=str(run_dir / "em_one"), fused_trainer=False,
+                                         **dict(TP_EM_KW, steps_per_scan=1)), data)
+    ref_adc = em.AngleDihedralCartesianEncoderMap(cvs, adc_params(em, run_dir / "adc_one", 1, 1))
+    save_pytree(ref_em.state.params, run_dir / "em_init.npz")
+    save_pytree(ref_adc.state.params, run_dir / "adc_init.npz")
+    np.savez(run_dir / "spec.npz", em_data=data, em_idx=em_idx, adc_idx=adc_idx,
+             em_kw=np.array(json.dumps(TP_EM_KW)),
+             **{f"adc_{k}": v for k, v in cvs.items()})
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-worker",
+                               str(r), str(run_dir)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            out, _ = proc.communicate(timeout=300)
+            outs.append(out)
+            check(proc.returncode == 0, f"{tag}: rank {r} failed:\n{out[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    ranks = [dict(np.load(run_dir / f"rank{r}.npz")) for r in range(2)]
+    for r in ranks:
+        check(str(r["backend"]) == "gloo" and list(r["mesh"]) == [1, 2],
+              f"{tag}: backend {r['backend']}, mesh {r['mesh']}")
+        check(list(r["em_kinds"]) == ["column", "row", ""], f"{tag}: layouts {r['em_kinds']}")
+
+    counts: dict = {}
+    for pre, per_step, steps in (("em", 1, TP_STEPS), ("adc", 2, 1)):
+        for r in ranks:
+            c = {k[len(pre) + 7:]: int(v) for k, v in r.items() if k.startswith(f"{pre}_count_")}
+            check(c.get("sigmoid_fwd") == per_step * steps
+                  and c.get("sigmoid_bwd") == per_step * steps
+                  and not c.get("fused_train") and not c.get("fused_train_cluster"),
+                  f"{tag} {pre}: a rank launched {c}")
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        a, b = ({k[len(pre) + 1:]: v for k, v in r.items() if k.startswith(pre + "_")}
+                for r in ranks)
+        for k in a:
+            if k[0] == "p" or k.startswith("mu") or k.startswith("h_"):
+                check(np.array_equal(a[k], b[k]), f"{tag} {pre}: the ranks' {k} differ")
+        rep = a["replicated"]
+        check(not rep.all() and all(np.array_equal(a[f"l{i}"], b[f"l{i}"])
+                                    for i in np.flatnonzero(rep)),
+              f"{tag} {pre}: nothing sharded, or the ranks' replicated leaves differ")
+
+    em_ref = _one_device_steps(em, ref_em, em_idx)
+    got = {k[3:]: v for k, v in ranks[0].items() if k.startswith("em_")}
+    loss_e, mu_e, par_e, noise = hold_same_steps(got, em_ref, f"{tag} EncoderMap")
+    log(f"[{tag}] EncoderMap {TP_EM_KW['n_neurons']} B={TP_EM_KW['batch_size']}, {TP_STEPS} "
+        f"tp-sharded steps on two gloo ranks "
+        f"against one device: losses within {loss_e:.2e} relative, first moments within "
+        f"{mu_e:.2e} of the largest, parameters within "
+        f"{par_e:.2e} ({noise} weights off by more, held to their steps by the rounding-noise "
+        f"rule); "
+        f"replicated leaves bit-identical across the ranks")
+    ckpt, _, step = load_checkpoint(run_dir / "em_rank0")
+    check(step == TP_STEPS and not (run_dir / "em_rank1" / f"saved_model_{TP_STEPS}.npz").exists(),
+          f"{tag}: checkpoint step {step}, or rank 1 wrote one")
+    check(all(np.array_equal(x, got[f"p{i}"]) for i, x in enumerate(tree_leaves(ckpt))),
+          f"{tag}: the checkpoint is not the gathered parameters")
+    one = em.EncoderMap(em.Parameters(**TP_EM_KW), data, model_params=ckpt, read_only=True)
+    check(np.isfinite(one.encode(data[:1024])).all(), f"{tag}: the checkpoint encodes NaN")
+
+    adc_ref = _one_device_steps(em, ref_adc, adc_idx)
+    got = {k[4:]: v for k, v in ranks[0].items() if k.startswith("adc_")}
+    loss_a, mu_a, par_a, noise_a = hold_same_steps(got, adc_ref, f"{tag} ADC", moments=False)
+    # the ADC step's float32 gradient is good to ~3e-5 of each tensor's
+    # largest (phase_adc's oracle), so the two float32 steps' gradients are
+    # held to the float64 oracle at the same weights, by the f64 rule
+    from encodermap_tpu_torch.ops.adc_adjoint import hand_adc_step
+
+    init = load_pytree(run_dir / "adc_init.npz")
+    f64 = [[torch.tensor(np.asarray(l[n]), dtype=torch.float64, device="cuda")
+            for l in init[part]] for part in ("encoder", "decoder") for n in ("kernel", "bias")]
+    b = [torch.tensor(cvs[k][adc_idx[0]], dtype=torch.float64, device="cuda") for k in CV_KEYS]
+    gew, geb, gdw, gdb, _ = hand_adc_step(
+        *f64, b[0], b[1], b[2][:, 1::3], b[3], b[4], 0.0,
+        hyper=_oracle_hyper(ref_adc.p, b[2][:, 1::3].shape[1]))
+    g64 = [np.clip(g.cpu().numpy(), -1.0, 1.0) for g in tree_leaves(
+        {part: [{"bias": bb, "kernel": w} for w, bb in zip(ws, bs)]
+         for part, ws, bs in (("encoder", gew, geb), ("decoder", gdw, gdb))})]
+    errs = []
+    for i, c in enumerate(g64):
+        e_tp, e_one = (float(np.abs(g - c).max() / np.abs(c).max())
+                       for g in (10 * got[f"mu{i}"], adc_ref[f"g0_{i}"]))
+        errs.append((e_tp, e_one))
+    check(all(a <= 3 * b for a, b in errs), f"{tag} ADC: the tp step's gradients part from "
+          f"float64 more than 3x the one-device step's: {errs}")
+    log(f"[{tag}] ADC trp-cage B=256, one tp-sharded step against one device: every logged "
+        f"term within {loss_a:.2e} relative, first moments within {mu_a:.2e} of the largest, "
+        f"parameters within {par_a:.2e} ({noise_a} weights "
+        f"off by more, held to their steps by the rounding-noise rule); gradients against "
+        f"hand_adc_step in float64, tp / one device, per tensor: "
+        + ", ".join(f"{a:.1e}/{b:.1e}" for a, b in errs))
+
+    # the one-device general route's step for scale, CUDA-synchronized host clock
+    warm = em.EncoderMap(em.Parameters(fused_trainer=False, **TP_EM_KW), data,
+                         model_params=load_pytree(run_dir / "em_init.npz"), read_only=True)
+    trainer, dev_data = warm._get_trainer(), warm._device_data()
+    idx = torch.as_tensor(em_idx, device="cuda")
+    trainer(warm.state, dev_data, idx[:1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer(warm.state, dev_data, idx)
+    torch.cuda.synchronize()
+    ms_one = (time.perf_counter() - t1) * 1e3 / TP_STEPS
+    ms_tp = [float(r["em_ms"]) for r in ranks]
+    log(f"[{tag}] EncoderMap step on two gloo ranks sharing the card: "
+        + ", ".join(f"rank {i} {m:.2f} ms" for i, m in enumerate(ms_tp))
+        + f"; one device {ms_one:.2f} ms (general route; host clock with CUDA syncs; {smi}). "
+        f"The tp number is the price of host-staged collectives on one shared card, not a "
+        f"speed for tensor parallelism. ADC step on the ranks "
+        + ", ".join(f"{float(r['adc_ms']):.2f}" for r in ranks)
+        + f" ms; one 256x128 float32 all-reduce on the tp group "
+        + ", ".join(f"{float(r['allreduce_ms']):.3f}" for r in ranks)
+        + f" ms; sigmoid launches on the ranks {counts}; leg {wall:.1f} s for the two processes")
+    return dict(counts=counts, ms_tp=ms_tp, ms_one=ms_one)
+
+
 # ------------------------------------------------- slice 6b: observability
 def _crc32c_bitwise(data: bytes) -> int:
     """CRC-32C one bit at a time: this script's own check of the records,
@@ -2512,6 +2966,9 @@ def main() -> int:
         adc_legs.append(phase_distributed(em, fs, _build, Path(tmp) / "distributed", stream,
                                           feat))
         log(f"[leg] phase_distributed: {time.perf_counter() - t0:.1f} s wall")
+        t0 = time.perf_counter()
+        adc_legs.append(phase_tensor_parallel(em, fs, _build, Path(tmp) / "tensor_parallel"))
+        log(f"[leg] phase_tensor_parallel: {time.perf_counter() - t0:.1f} s wall")
         adc_legs.append(obs)
 
     main_sig = sig["D=3 euclid"]
@@ -2553,4 +3010,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        # one rank of phase_tensor_parallel, started by it
+        sys.exit(tp_worker(int(sys.argv[2]), Path(sys.argv[3])))
     sys.exit(main())

@@ -16,6 +16,12 @@ a checkpoint written by either package loads in the other:
 Reference ``.keras`` checkpoints (the files published EncoderMap projects
 ship) are read through :mod:`.keras_import`, which needs ``h5py``. No pickle
 anywhere.
+
+A tp-sharded state (``parallel/mesh.py::shard_params_tp``) is saved whole:
+:func:`save_checkpoint` gathers its shards over ``tp`` on every rank and
+rank 0 writes, so the file loads on one device and in the JAX package.
+On a tp mesh, ``shard_params_tp`` of the loaded parameters (and of the
+Adam moments) shards them again.
 """
 
 from __future__ import annotations
@@ -144,7 +150,21 @@ def save_checkpoint(
     """Write ``{prefix}_{step}.npz`` (+ ``.opt.npz``, ``.rng.npy``) and
     refresh ``parameters.json`` with the current step. ``scheduled``: the
     optimizer's learning rate is a schedule, whose optax state holds a
-    count of its own."""
+    count of its own. Parameters (and Adam moments) sharded over ``tp`` are
+    gathered whole first, a collective that every rank must join; then
+    only rank 0 writes (the others return None)."""
+    from ..nn import has_tp_layers
+
+    if has_tp_layers(params):
+        from ..parallel.distributed import is_primary
+        from ..parallel.mesh import unshard_params_tp
+
+        params = unshard_params_tp(params)
+        if opt_state is not None:
+            opt_state = dict(opt_state, mu=unshard_params_tp(opt_state["mu"]),
+                             nu=unshard_params_tp(opt_state["nu"]))
+        if not is_primary():
+            return None
     main_path = Path(main_path)
     main_path.mkdir(parents=True, exist_ok=True)
     ckpt = main_path / f"{prefix}_{step}.npz"

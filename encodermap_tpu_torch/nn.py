@@ -6,6 +6,18 @@ Counterpart of ``encodermap_tpu/nn.py`` (itself after the reference's Keras
 ``{"kernel": (din, dout), "bias": (dout,)}``: kernels are stored
 ``(din, dout)`` exactly as the JAX package stores them, so weights copy
 across without a transpose and checkpoints interchange.
+
+Tensor parallelism: a :class:`TPLayer` is a layer whose tensors are one
+rank's slices over the ``tp`` axis (``parallel/mesh.py::shard_params_tp``
+makes them). A column-parallel layer holds a slice of the kernel's output
+width and of the bias; a row-parallel layer a slice of the kernel's input
+width and the whole bias. :func:`mlp_apply` runs them with Megatron's
+collectives (``parallel/distributed.py``): the input of a column-parallel
+layer enters the tp region (identity forward, all-reduce backward), a
+row-parallel layer's partial product is all-reduced before its bias, and a
+column-parallel output that feeds a replicated layer is all-gathered.
+:func:`l2_sum` adds each sharded kernel's square sum once across the tp
+group. A plain ``dict`` layer is computed as on one device.
 """
 
 from __future__ import annotations
@@ -18,6 +30,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "ACTIVATIONS",
+    "TPLayer",
+    "has_tp_layers",
     "dense_init",
     "dense_apply",
     "mlp_init",
@@ -54,6 +68,45 @@ ACTIVATIONS: dict[str, Optional[Callable[[torch.Tensor], torch.Tensor]]] = {
 #: std of a unit normal truncated to [-2, 2]; VarianceScaling divides by it
 #: so that the truncated draw has the requested variance
 _TRUNC_STD = 0.87962566103423978
+
+
+class TPLayer(dict):
+    """A dense layer's ``{"kernel", "bias"}`` as one rank's slices over the
+    tp axis: ``kind`` is ``"column"`` (kernel split on its output width,
+    bias split) or ``"row"`` (kernel split on its input width, bias whole),
+    ``group`` the tp process group. Tree maps keep the kind and the group
+    (``train/core.py::tree_unflatten``)."""
+
+    #: the JAX package's PartitionSpecs of (kernel, bias) by kind
+    SPECS = {"column": ((None, "tp"), ("tp",)), "row": (("tp", None), ())}
+
+    def __init__(self, items: dict, kind: str, group: Any) -> None:
+        if kind not in self.SPECS:
+            raise ValueError(f"kind must be 'column' or 'row', got {kind!r}")
+        super().__init__(items)
+        self.kind = kind
+        self.group = group
+
+    def like(self, items: dict) -> "TPLayer":
+        """Another layer of this kind and group holding ``items``."""
+        return TPLayer(items, self.kind, self.group)
+
+    @property
+    def specs(self) -> dict:
+        """``{"kernel": spec, "bias": spec}`` as tuples of axis names."""
+        k, b = self.SPECS[self.kind]
+        return {"kernel": k, "bias": b}
+
+
+def has_tp_layers(tree: Any) -> bool:
+    """Whether a parameter tree holds a tp-sharded layer."""
+    if isinstance(tree, TPLayer):
+        return True
+    if isinstance(tree, dict):
+        return any(has_tp_layers(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(has_tp_layers(v) for v in tree)
+    return False
 
 
 def dense_init(
@@ -105,12 +158,25 @@ def dense_apply(
     operands are rounded to bf16 and the product accumulates in float32,
     as the JAX package's ``preferred_element_type=float32`` does: a product
     of two bf16 values is exact in float32, so rounding the operands and
-    multiplying in float32 is that computation."""
+    multiplying in float32 is that computation. A column-parallel
+    :class:`TPLayer` takes the whole input and gives its slice of the
+    output; a row-parallel one takes its slice of the input and gives the
+    whole output, all-reduced before the bias."""
     kernel = params["kernel"]
+    kind = getattr(params, "kind", None)
+    if kind == "column":
+        from .parallel.distributed import enter_tp
+
+        x = enter_tp(x, params.group)
     if compute_dtype is not None and compute_dtype != kernel.dtype:
         x = x.to(compute_dtype).float()
         kernel = kernel.to(compute_dtype).float()
-    y = x.float() @ kernel.float() + params["bias"].float()
+    y = x.float() @ kernel.float()
+    if kind == "row":
+        from .parallel.distributed import reduce_tp
+
+        y = reduce_tp(y, params.group)
+    y = y + params["bias"].float()
     if activation is not None:
         y = activation(y)
     return y
@@ -129,21 +195,46 @@ def mlp_init(generator: torch.Generator, dims: Sequence[int],
 def mlp_apply(layers: Sequence[Params], x: torch.Tensor,
               activations: Sequence[Optional[Callable]],
               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Apply a dense stack with one activation per layer."""
+    """Apply a dense stack with one activation per layer. Between
+    tp-sharded layers the activations stay sliced; a column-parallel
+    output is all-gathered where a replicated layer or the stack's end
+    needs it whole."""
     if len(layers) != len(activations):
         raise ValueError(f"{len(layers)} layers, {len(activations)} activations")
+    sliced = None  # the tp group while x is a column-parallel output slice
     for lp, act in zip(layers, activations):
+        kind = getattr(lp, "kind", None)
+        if sliced is not None and kind != "row":
+            from .parallel.distributed import gather_tp
+
+            x, sliced = gather_tp(x, sliced), None
+        elif sliced is None and kind == "row":
+            raise ValueError("a row-parallel layer needs the output slice of a "
+                             "column-parallel layer before it (shard_params_tp's layout)")
         x = dense_apply(lp, x, act, compute_dtype)
+        if kind == "column":
+            sliced = lp.group
+        elif kind == "row":
+            sliced = None
+    if sliced is not None:
+        from .parallel.distributed import gather_tp
+
+        x = gather_tp(x, sliced)
     return x
 
 
 def l2_sum(layers_tree: Any) -> torch.Tensor:
     """Sum of squared kernel weights (biases excluded), Keras'
-    ``regularizers.l2`` before its constant."""
+    ``regularizers.l2`` before its constant. The square sums of tp-sharded
+    kernels are all-reduced over their tp group (each counted once), the
+    replicated ones added once."""
     leaves = []
+    sharded: list = []
 
     def visit(node):
-        if isinstance(node, dict) and "kernel" in node:
+        if isinstance(node, TPLayer):
+            sharded.append((node.group, torch.sum(torch.square(node["kernel"]))))
+        elif isinstance(node, dict) and "kernel" in node:
             leaves.append(torch.sum(torch.square(node["kernel"])))
         elif isinstance(node, dict):
             for v in node.values():
@@ -153,6 +244,13 @@ def l2_sum(layers_tree: Any) -> torch.Tensor:
                 visit(v)
 
     visit(layers_tree)
+    if sharded:
+        from .parallel.distributed import reduce_tp
+
+        part = sharded[0][1]
+        for _, leaf in sharded[1:]:
+            part = part + leaf
+        leaves.append(reduce_tp(part, sharded[0][0]))
     total = torch.zeros((), dtype=torch.float32,
                         device=leaves[0].device if leaves else "cpu")
     for leaf in leaves:

@@ -1,10 +1,13 @@
 # encodermap_tpu_torch/ops/__init__.py
 """Numerical building blocks of the port: distances, backmapping, Kabsch,
-the analytic and blocked Cartesian costs, and the two kernel modules,
-``fused_sigmoid`` (sketch-map loss) and ``fused_train`` (a chunk of
-EncoderMap steps). Counterpart of ``encodermap_tpu/ops``, with the same
-re-exports (``encodermap_tpu/ops/__init__.py:3-39``). The kernel modules
-build their CUDA libraries on first launch, not on import."""
+the analytic and blocked Cartesian costs, the float64 ADC gradient oracle
+``adc_adjoint``, and the two kernel modules, ``fused_sigmoid`` (sketch-map
+loss) and ``fused_train`` (a chunk of EncoderMap steps). Counterpart of
+``encodermap_tpu/ops``, with the same re-exports
+(``encodermap_tpu/ops/__init__.py:3-39``). The kernel modules build their
+CUDA libraries on first launch, not on import."""
+
+from . import adc_adjoint
 
 from .backmap import (
     backmap,

@@ -1,6 +1,7 @@
 # encodermap_tpu_torch/parallel/__init__.py
-"""Data parallelism over ``torch.distributed`` (one process per device),
-the multi-process runtime helpers and sharded featurization.
+"""Data and tensor parallelism over ``torch.distributed`` (one process per
+device): the ``("dp", "tp")`` mesh, ``shard_params_tp``, the
+multi-process runtime helpers and sharded featurization.
 
 Counterpart of ``encodermap_tpu/parallel/``."""
 
@@ -14,11 +15,13 @@ from .distributed import (
     process_local_slice,
     world,
 )
-from .mesh import make_mesh, replicate, shard_batch
+from .mesh import make_mesh, replicate, shard_batch, shard_params_tp, unshard_params_tp
 
 __all__ = [
     "make_mesh",
     "shard_batch",
+    "shard_params_tp",
+    "unshard_params_tp",
     "replicate",
     "initialize",
     "is_primary",

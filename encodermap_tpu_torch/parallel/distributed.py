@@ -19,6 +19,13 @@ trainers stay process-count agnostic through these helpers:
   forward pass: each rank's rows, concatenated in rank order on every
   rank, with the all-gather's adjoint (a reduce-scatter) in the backward
   pass.
+* :func:`enter_tp`, :func:`reduce_tp` and :func:`gather_tp` are Megatron's
+  three collectives over the ``tp`` group, which ``nn.py`` runs around
+  tensor-parallel layers: the input of a column-parallel layer (identity
+  forward, all-reduce backward), a row-parallel layer's partial product
+  (all-reduce forward, identity backward), and a column-parallel output
+  that feeds a replicated layer (all-gather forward, this rank's slice
+  backward).
 """
 
 from __future__ import annotations
@@ -41,6 +48,9 @@ __all__ = [
     "host_local_batch",
     "process_local_slice",
     "gather_rows",
+    "enter_tp",
+    "reduce_tp",
+    "gather_tp",
     "world",
 ]
 
@@ -70,9 +80,12 @@ def initialize(init_method: Optional[str] = None,
     a single-process run, and this is a no-op.
 
     The backend follows ``device`` (None means the card): NCCL for CUDA,
-    gloo for the CPU. On CUDA each process takes the card ``LOCAL_RANK`` (else its rank
-    modulo the visible cards). Calling again is safe; an explicit
-    ``init_method`` after a no-op still joins.
+    gloo for the CPU, and gloo for CUDA too where this node runs more
+    ranks than it has visible cards (NCCL refuses two ranks on one card;
+    gloo stages each collective through the host). On CUDA each process
+    takes the card ``LOCAL_RANK`` (else its rank modulo the visible cards).
+    Calling again is safe; an explicit ``init_method`` after a no-op still
+    joins.
     """
     global _initialized
     if dist.is_initialized():
@@ -85,19 +98,32 @@ def initialize(init_method: Optional[str] = None,
         _initialized = "no-op"
         return
     dev = resolve_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
     if init_method is None:
         init_method = "env://"
         world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
         rank = int(os.environ["RANK"]) if rank is None else rank
     if world_size is None or rank is None:
         raise ValueError(f"init_method={init_method!r} needs world_size and rank")
+    backend = backend_for(dev, int(world_size))
     if dev.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
         torch.cuda.set_device(local)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=int(world_size), rank=int(rank))
     _initialized = "joined"
+
+
+def backend_for(device: torch.device, world_size: int) -> str:
+    """The process group's backend for a run of ``world_size`` ranks on
+    ``device``: NCCL on CUDA, gloo on the CPU, and gloo on CUDA where the
+    ranks on this node outnumber its visible cards (NCCL refuses two ranks
+    on one). The ranks on this node are the launcher's
+    ``LOCAL_WORLD_SIZE`` (``torchrun`` sets it); without it, every rank
+    is taken to be on this node."""
+    if device.type != "cuda":
+        return "gloo"
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    return "nccl" if local <= torch.cuda.device_count() else "gloo"
 
 
 def is_primary() -> bool:
@@ -120,7 +146,7 @@ def primary_only(fn: Callable) -> Callable:
 
 def global_mesh(dp: Optional[int] = None, tp: int = 1, device: Any = None):
     """The ``("dp", "tp")`` mesh over every rank; ``dp`` defaults to
-    ``world_size // tp``."""
+    ``world_size // tp``, ``tp`` goes to ``make_mesh`` as it is."""
     from .mesh import make_mesh
 
     return make_mesh(dp=dp, tp=tp, device=device)
@@ -163,6 +189,14 @@ def host_local_batch(local: Any, mesh: Any = None, n_global: Optional[int] = Non
     return put(local)
 
 
+def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``group``, concatenated along ``dim`` in rank
+    order (not differentiable)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
 class _GatherRows(torch.autograd.Function):
     """All-gather along the leading axis; the backward pass is the
     all-gather's adjoint, a reduce-scatter: every rank's gradient of the
@@ -170,11 +204,8 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        size = dist.get_world_size(group)
         ctx.group, ctx.rows = group, x.shape[0]
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=0)
+        return all_gather_cat(x, group, dim=0)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
@@ -192,3 +223,73 @@ def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     the global one, and the caller divides the all-reduced sum by the
     world size (``train/autoencoder.py::Autoencoder._reduce_grads``)."""
     return _GatherRows.apply(x, group)
+
+
+def _group_rank(group) -> int:
+    return dist.get_group_rank(group, dist.get_rank()) if group is not None \
+        else dist.get_rank()
+
+
+class _EnterTP(torch.autograd.Function):
+    """Identity forward; the backward pass sums the gradient over the tp
+    group (each rank's column slice contributes its part of the input's
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceTP(torch.autograd.Function):
+    """All-reduce (sum) over the tp group forward; identity backward (the
+    sum's gradient reaches every rank's partial unchanged)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+class _GatherTP(torch.autograd.Function):
+    """All-gather along the last axis over the tp group, in rank order;
+    the backward pass keeps this rank's slice of the gradient (what
+    follows is replicated, so every rank holds the same whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.rank, ctx.width = _group_rank(group), x.shape[-1]
+        return all_gather_cat(x, group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.narrow(-1, ctx.rank * ctx.width, ctx.width).contiguous(), None
+
+
+def enter_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (replicated over the tp group) as the input of a
+    column-parallel layer: unchanged, its gradient summed over the group."""
+    return _EnterTP.apply(x, group)
+
+
+def reduce_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every tp rank's ``x`` (a row-parallel layer's partial
+    product, or a sharded tensor's square sum), differentiable."""
+    return _ReduceTP.apply(x, group)
+
+
+def gather_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Every tp rank's slice of the last axis, concatenated in rank order:
+    a column-parallel output made whole, differentiable."""
+    return _GatherTP.apply(x, group)

@@ -40,7 +40,10 @@ builds a model from a few frames of such a file, so the CVs never live in
 memory whole. With ``p.mesh_shape={"dp": N}`` each rank runs the per-row
 forward (encoder, decoder, backmapping) on its share of the batch and the
 losses see every rank's rows (``Autoencoder._gather_rows``), as in
-``train/autoencoder.py``.
+``train/autoencoder.py``; with a ``tp`` axis too, a state passed through
+``parallel.shard_params_tp`` runs its MLP tensor-parallel (the densifiers
+stay replicated) and the MeanAngles batch mean is gathered over ``dp``
+only.
 """
 
 from __future__ import annotations

@@ -35,13 +35,23 @@ training set on its device, where the JAX package shards it (ROADMAP.md
 Queue 3). Checkpoints, the metrics log and the progress output come from
 rank 0 only.
 
+Tensor parallelism: ``p.mesh_shape={"dp": d, "tp": t}`` runs ``d * t``
+processes. As in the JAX package, whose trainers never call
+``shard_params_tp``, the batch is split over ``dp`` only and the
+parameters stay replicated over ``tp``: the ranks of one dp index take the
+same rows, and the gathers and the gradient reduction run over the ``dp``
+group alone. A state passed through ``parallel.shard_params_tp`` (its
+layers then ``nn.TPLayer``s) steps as the unsharded one does
+(:meth:`Autoencoder._make_train_step`): the forward pass and the L2 sum run
+the tp collectives, a shard's gradient stays on its rank, and clipping and
+Adam act on shards elementwise. :meth:`Autoencoder.save` of such a state
+writes whole tensors, gathered over ``tp``.
+
 Observability: ``p.tensorboard=True`` mirrors the metrics rows to a
 TensorBoard event file in ``main_path/train/`` (written by the port itself,
 ``misc/event_file.py``), :meth:`Autoencoder.add_images_to_tensorboard`
 adds latent images, and ``p.tensorboard or p.write_summary`` writes
 ``complete_model_summary.txt`` when the model is built.
-
-Not ported yet: ``tp > 1``.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ from ..misc.saving import (
 )
 from ..misc.summaries import MetricsWriter
 from ..models import sequential as seq
+from ..nn import has_tp_layers
 from ..parameters import Parameters
 from ..parallel.distributed import gather_rows, is_primary
 from .callbacks import Callback, CheckpointSaver, NaNInterrupt, ProgressBar
@@ -326,8 +337,9 @@ class Autoencoder:
 
     def save(self, step: Optional[int] = None) -> Optional[str]:
         """Checkpoint parameters, Adam state, RNG and step
-        (``autoencoder.py:1197``); nothing when read-only or off rank 0."""
-        if self.read_only or not is_primary():
+        (``autoencoder.py:1197``); nothing when read-only or off rank 0. A
+        tp-sharded state is gathered over ``tp`` first, on every rank."""
+        if self.read_only or not (is_primary() or has_tp_layers(self.state.params)):
             return None
         step = self.state.step if step is None else int(step)
         return save_checkpoint(self.p.main_path, self.state.params, step,

@@ -38,6 +38,8 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
+from ..nn import TPLayer
+
 __all__ = [
     "ArrayBatchSource",
     "HDF5BatchSource",
@@ -69,12 +71,14 @@ def tree_leaves(tree: Any) -> list:
 
 def tree_unflatten(template: Any, leaves: list) -> Any:
     """A tree shaped like ``template`` holding ``leaves`` in
-    :func:`tree_leaves` order."""
+    :func:`tree_leaves` order; a tp-sharded layer of ``template`` stays one
+    (``nn.TPLayer``), with its kind and group."""
     it = iter(leaves)
 
     def build(node):
         if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
+            out = {k: build(node[k]) for k in sorted(node)}
+            return node.like(out) if isinstance(node, TPLayer) else out
         if isinstance(node, (list, tuple)):
             return [build(v) for v in node]
         return next(it)

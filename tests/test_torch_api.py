@@ -10,12 +10,11 @@ the empty bases. ``train_streaming`` runs on every trainer from a batch
 source (its parity with the JAX package is in ``test_torch_streaming.py``)
 and refuses a bare path, which only the ADC reads itself.
 
-The surface of slices 6a and 6b against the JAX package: the top-level names
+The surface of slices 6a to 6c against the JAX package: the top-level names
 (with ``plot``, ``function`` and ``InteractivePlotting``), the public names
 of every subpackage and of ``em.callbacks``, the module files, and the
-trainers' methods; only ``parallel.shard_params_tp`` and
-``ops/adc_adjoint.py`` (ROADMAP.md Queue 1 items 15 and 19) are missing,
-and the Pallas modules are the kernel wrappers. Slice 6a's names
+trainers' methods, ``parallel.shard_params_tp`` and ``ops/adc_adjoint.py``
+among them; the Pallas modules are the kernel wrappers. Slice 6a's names
 (``MolData``, ``get_from_kondata``, ``load_project``, ``DaskFeaturizer``,
 ``CustomAAsDict``, the subpackages, ``em.callbacks`` with the metric
 classes, ``__version__``); the ``misc`` helpers, equal to the JAX
@@ -145,11 +144,10 @@ def test_top_level_names_match_jax(name):
 #: JAX modules the port replaces by name: the Pallas kernels' modules by the
 #: hand kernels' wrappers
 KERNEL_MODULES = {"pallas_sigmoid": "fused_sigmoid", "pallas_train": "fused_train"}
-#: still to port (ROADMAP.md Queue 1): the tensor-parallel axis (item 15) and
-#: the float64 ADC gradient oracle (item 19; a name of ``ops`` once another
-#: test has imported the module)
-LATER_NAMES = {"parallel": {"shard_params_tp"}, "ops": {"adc_adjoint"}}
-LATER_FILES = {"ops/adc_adjoint.py"}
+#: still to port (ROADMAP.md Queue 1): nothing; the last two, the
+#: tensor-parallel axis and the float64 ADC gradient oracle, came in slice 6c
+LATER_NAMES: dict = {}
+LATER_FILES: set = set()
 SUBPACKAGES = ["ops", "models", "misc", "plot", "parallel", "callbacks", "data",
                "loading", "train"]
 
@@ -185,8 +183,9 @@ def test_subpackage_names_match_jax(sub):
     assert missing <= LATER_NAMES.get(sub, set())
     if hasattr(ref, "__all__"):
         assert set(ref.__all__) - set(got.__all__) <= LATER_NAMES.get(sub, set())
-    if sub == "parallel":
-        assert missing == {"shard_params_tp"}
+    if sub in ("parallel", "ops"):
+        assert not missing and {"shard_params_tp", "adc_adjoint"} & _own_names(
+            got, "encodermap_tpu_torch")
 
 
 def test_module_files_match_jax():

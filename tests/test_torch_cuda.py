@@ -41,7 +41,13 @@ equals the plain featurizer bit for bit.
 Analysis (slice 6a): ``compute_dssp`` on the card gives the CPU's strings
 (float64 on both, a 152-residue synthetic diubiquitin), and
 ``pairwise_rmsd_matrix`` on the card matches the CPU within 1e-5 nm
-(float32 Kabsch fits in another summation order; trp-cage)."""
+(float32 Kabsch fits in another summation order; trp-cage).
+
+The float64 ADC oracle (slice 6c): ``hand_adc_step`` on the card equals
+the CPU's to 1e-12 relative, and a small ADC's step on the card (the
+sigmoid-loss kernels) parts from it by at most 3x what the same step with
+their plain versions does, per parameter tensor and in the latent
+gradient of the sigmoid costs (``chip_smoke.py::adc_oracle_check``)."""
 
 import math
 
@@ -825,3 +831,49 @@ def test_function_compiles_on_card(cuda):
     got = em.function(f)(a, b)
     assert got.device == a.device
     assert float((got - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("case", ["odd_side_softstart", "even_no_side", "constant_scale"])
+def test_hand_adc_step_on_card_matches_cpu(cuda, case):
+    from encodermap_tpu_torch.ops import adc_adjoint
+    from tests.test_torch_adc_adjoint import _problem
+
+    net, data, hyper = _problem(case)
+
+    def run(device):
+        ws = {k: [torch.tensor(x, dtype=torch.float64, device=device) for x in v]
+              for k, v in net.items()}
+        d = {k: None if v is None else torch.tensor(v, dtype=torch.float64, device=device)
+             for k, v in data.items()}
+        *grads, metrics = adc_adjoint.hand_adc_step(
+            ws["enc_w"], ws["enc_b"], ws["dec_w"], ws["dec_b"], d["angles"], d["dihedrals"],
+            d["ca"], d["distances"], d["side"], 5.0, hyper=hyper)
+        leaves = [g.cpu().numpy() for gs in grads for g in gs]
+        return leaves, {k: float(v) for k, v in metrics.items()}
+
+    (card, m_card), (cpu, m_cpu) = run(cuda), run("cpu")
+    # 1e-12 of each tensor's largest entry: the card's products sum in
+    # another order (and fuse multiply-adds), a few ulp of the large terms
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12 * np.abs(b).max(),
+                                   err_msg=f"gradient {i}")
+    for k, v in m_cpu.items():
+        assert m_card[k] == pytest.approx(v, rel=1e-12, abs=1e-15), k
+
+
+def test_adc_step_on_card_within_3x_of_plain_from_float64(cuda, tmp_path):
+    """phase_adc's oracle rule at a small size: 8 residues, [32,32,2],
+    B=64, after 5 steps on the card."""
+    import encodermap_tpu_torch as emt
+    from chip_smoke import CV_KEYS, adc_cvs, adc_oracle_check
+
+    cvs = adc_cvs(8, 256, seed=4)
+    p = emt.ADCParameters(main_path=str(tmp_path), n_neurons=[32, 32, 2], batch_size=64,
+                          n_steps=5, steps_per_scan=5, seed=0, cartesian_pwd_start=1,
+                          cartesian_pwd_step=3, use_backbone_angles=True, use_sidechains=True,
+                          distance_cost_scale=1.0, cartesian_cost_scale_soft_start=(0, 50))
+    emap = emt.AngleDihedralCartesianEncoderMap(cvs, p, read_only=True)
+    emap.train()
+    batch = tuple(torch.tensor(cvs[k][:64], device=cuda) for k in CV_KEYS)
+    out = adc_oracle_check(emap, batch, emap.state.step, "card test")
+    assert len(out["errs"]) == 12 and out["loss_rel"] <= 1e-4

@@ -160,6 +160,12 @@ def worker(rank: int, world: int, rendezvous: str, d: Path) -> None:
     losses.fused_or_reference = route
     s = parallel.process_local_slice(103)
     info = {"slice": np.array([s.start, s.stop]), "primary": np.array(parallel.is_primary())}
+    # the two ranks as a dp=1 x tp=2 mesh, and a trainer on it
+    tp_mesh = parallel.make_mesh(dp=1, tp=2, device="cpu")
+    tp_model = emt.EncoderMap(emt.Parameters(mesh_shape={"dp": 1, "tp": 2}, n_neurons=[8, 8, 2]),
+                              np.zeros((16, 3), np.float32), read_only=True, device="cpu")
+    info["tp_mesh"] = np.array([tp_mesh["dp"].size(), tp_mesh["tp"].size(),
+                                tp_model.mesh["dp"].size(), tp_model.mesh["tp"].size()])
     traj = emt.load(str(d / "p.xtc"), str(d / "p.pdb"))
     sharded = ShardedFeaturizer(traj, block_size=8, device="cpu")
     sharded.add_list_of_feats("all")
@@ -468,10 +474,11 @@ def test_single_process_helpers(tmp_path, monkeypatch):
     assert not (tmp_path / "secondary").exists()
 
 
-def test_mesh_refusals_and_featurizer_dispatch(tmp_path):
-    """A mesh needs one process per device and says how to launch them;
-    ``tp > 1`` waits for its ROADMAP item; ``DaskFeaturizer`` dispatches
-    as the JAX package's does."""
+def test_mesh_refusals_and_featurizer_dispatch(tmp_path, dp):
+    """A mesh needs one process per device and says how to launch them,
+    on the tensor-parallel axis too; the two ranks build a ``dp=1 x tp=2``
+    mesh and a trainer on it; ``DaskFeaturizer`` dispatches as the JAX
+    package's does."""
     import encodermap_tpu_torch as emt
     from encodermap_tpu_torch.loading.featurizer import EnsembleFeaturizer
     from encodermap_tpu_torch.parallel import make_mesh
@@ -483,8 +490,10 @@ def test_mesh_refusals_and_featurizer_dispatch(tmp_path):
 
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         make_mesh(dp=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         make_mesh(dp=2, tp=2, device="cpu")
+    for info in dp["info"]:
+        assert list(info["tp_mesh"]) == [1, 2, 1, 2]
     top, xyz = synthetic_protein("FKL", 4, seed=1)
     write_pdb(tmp_path / "p.pdb", top, xyz[:1])
     write_xtc(tmp_path / "p.xtc", xyz)

@@ -221,13 +221,24 @@ def test_dihedral_generate_and_gaps(tmp_path):
     assert struct.unpack("<I", raw[8:12])[0] == masked_crc32c(raw[:8])
     assert struct.unpack("<I", raw[12 + n:16 + n])[0] == masked_crc32c(raw[12:12 + n])
     assert b"brain.Event:2" in raw[12:12 + n] and b"loss" in raw[16 + n:]
-    # a mesh needs one process per device; the tensor-parallel axis waits
+    # a mesh needs one process per device, on the tensor-parallel axis too
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         emt.EncoderMap(emt.Parameters(main_path=str(tmp_path), mesh_shape={"dp": 2}),
                        data, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         emt.EncoderMap(emt.Parameters(main_path=str(tmp_path),
                                       mesh_shape={"dp": 1, "tp": 2}), data, device="cpu")
+    # two processes build the tp mesh and the trainer on it
+    from tests.test_torch_tensor_parallel import run_ranks
+
+    np.save(tmp_path / "data.npy", data)
+    outs = run_ranks(
+        "import numpy as np, encodermap_tpu_torch as emt\n"
+        f"p = emt.Parameters(mesh_shape={{'dp': 1, 'tp': 2}}, **{_kw(True, n_steps=2)!r})\n"
+        f"m = emt.DihedralEncoderMap(p, np.load({str(tmp_path / 'data.npy')!r}), "
+        "read_only=True, device='cpu')\n"
+        "print('mesh', m.mesh['dp'].size(), m.mesh['tp'].size(), m._dp[1])\n", 2, tmp_path)
+    assert all("mesh 1 2 1" in out for out in outs), outs
 
 
 def test_default_device_is_cuda_and_raises_without_it(tmp_path):
