@@ -28,7 +28,9 @@
 //   each thread reads its 4 i values and 4 j values of a column as two
 //   float4 loads for 16 pair updates.
 // * Cheap powers (sigmoid_pairs.cuh): exponents are classified on the host,
-//   so the defaults take one rsqrtf and one reciprocal per pair, no powf.
+//   so the defaults take one rsqrtf and two reciprocals a pair, no powf; each
+//   side's s = 1 - u^e comes without the cancellation of 1 - u^e near u = 1
+//   (sig_s), so a small s keeps a few ulp of relative accuracy.
 // * Forward: each tile writes one partial; a one-block pass adds them in
 //   double in a fixed order. Backward: each tile reduces its pair terms f_ij
 //   into row partials of its I rows (sum_j f_ij and sum_j f_ij l_j) and
@@ -56,6 +58,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPass = 64;        // rows (and columns) of pairs in a pass
 constexpr int kChunk = 32;       // feature columns staged at once
 constexpr int kNP = 16;          // pairs per thread and pass (4 x 4)
+constexpr int kHalf = kNP / 2;   // pairs whose sigmoids are taken at once
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kVGroup = 4;       // column sums passed between warps at once
 constexpr int kSumRows = 32;     // rows per block of the slot sum
@@ -213,26 +216,38 @@ sigmoid_fwd_kernel(const float* __restrict__ h, const float* __restrict__ l, int
     for (int pj = diag ? pi : 0; pj < P; ++pj) {
       const int i0 = I * T + pi * kPass, j0 = J * T + pj * kPass;
       if (i0 >= n || j0 >= n) continue;
-      float yh[kNP], yl[kNP], unused[kNP];
+      float dh[kNP], dl[kNP];
       pass_d2<PERIODIC>(h, l, n, D, d, ld, i0, j0, pi * kPass, pj * kPass, period, hsI,
-                        hsJ, lsI, lsJ, yh, yl);
-      sig_t<kNP, PERIODIC>(sh, yh);
-      sig_y<kNP, false>(sh, yh, unused);
-      sig_t<kNP, false>(sl, yl);
-      sig_y<kNP, false>(sl, yl, unused);
-      if (masked) {
+                        hsJ, lsI, lsJ, dh, dl);
+      // s_h - s_l in two halves of kHalf pairs, to keep registers low
 #pragma unroll
-        for (int p = 0; p < kNP; ++p) {
-          const int i = i0 + 4 * ty + p / 4, j = j0 + 4 * tx + p % 4;
-          const float w = (i < n && j < n) ? (!diag || i < j ? 2.f : (i == j ? 1.f : 0.f)) : 0.f;
-          const float diff = yl[p] - yh[p];  // s_h - s_l
-          acc = fmaf(w * diff, diff, acc);
+      for (int half = 0; half < 2; ++half) {
+        float th[kHalf], tl[kHalf], y[kHalf], iu[kHalf];
+#pragma unroll
+        for (int q = 0; q < kHalf; ++q) {
+          th[q] = dh[half * kHalf + q];
+          tl[q] = dl[half * kHalf + q];
         }
-      } else {
+        sig_t<kHalf, PERIODIC>(sh, th);
+        sig_s<kHalf>(sh, th, y, iu);
+        sig_t<kHalf, false>(sl, tl);
+        sig_s<kHalf>(sl, tl, y, iu);
+        if (masked) {
 #pragma unroll
-        for (int p = 0; p < kNP; ++p) {
-          const float diff = yl[p] - yh[p];
-          acc = fmaf(diff, diff, acc);
+          for (int q = 0; q < kHalf; ++q) {
+            const int p = half * kHalf + q;
+            const int i = i0 + 4 * ty + p / 4, j = j0 + 4 * tx + p % 4;
+            const float w =
+                (i < n && j < n) ? (!diag || i < j ? 2.f : (i == j ? 1.f : 0.f)) : 0.f;
+            const float diff = th[q] - tl[q];  // s_h - s_l
+            acc = fmaf(w * diff, diff, acc);
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < kHalf; ++q) {
+            const float diff = th[q] - tl[q];
+            acc = fmaf(diff, diff, acc);
+          }
         }
       }
     }
@@ -325,28 +340,37 @@ sigmoid_bwd_kernel(const float* __restrict__ h, const float* __restrict__ l, int
           for (int p = 0; p < kNP; ++p)
             if (dl[p] != 0.f) keep |= 1u << p;
         }
-        sig_t<kNP, PERIODIC>(sh, yh);
-        sig_y<kNP, false>(sh, yh, f);  // f: scratch
-        // the latent side in two halves of 8 pairs, to keep registers low;
-        // f = (s_l - s_h) s_l'(r)/r, s_l'(r)/r = dscale u^(e-1) [t / r^2 unless a == 2]
+        // each side in two halves of kHalf pairs, to keep registers low:
+        // s_h into yh; then f = (s_l - s_h) s_l'(r)/r, s_l'(r)/r = dscale
+        // u^(e-1) [t / r^2 unless a == 2], u^(e-1) = y / u
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          float t[kNP / 2], iu[kNP / 2], g[kNP / 2];
+          float t[kHalf], y[kHalf], iu[kHalf];
 #pragma unroll
-          for (int q = 0; q < kNP / 2; ++q) t[q] = dl[half * kNP / 2 + q];
-          sig_t<kNP / 2, false>(sl, t);
+          for (int q = 0; q < kHalf; ++q) t[q] = yh[half * kHalf + q];
+          sig_t<kHalf, PERIODIC>(sh, t);
+          sig_s<kHalf>(sh, t, y, iu);
+#pragma unroll
+          for (int q = 0; q < kHalf; ++q) yh[half * kHalf + q] = t[q];
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float t[kHalf], y[kHalf], iu[kHalf], g[kHalf];
+#pragma unroll
+          for (int q = 0; q < kHalf; ++q) t[q] = dl[half * kHalf + q];
+          sig_t<kHalf, false>(sl, t);
           if (sl.half_a != 1) {  // t / r^2, 0 where t underflows
 #pragma unroll
-            for (int q = 0; q < kNP / 2; ++q) g[q] = t[q] / dl[half * kNP / 2 + q];
+            for (int q = 0; q < kHalf; ++q) g[q] = t[q] / dl[half * kHalf + q];
           }
-          sig_y<kNP / 2, true>(sl, t, iu);
+          sig_s<kHalf>(sl, t, y, iu);
 #pragma unroll
-          for (int q = 0; q < kNP / 2; ++q) {
-            const int p = half * kNP / 2 + q;
-            float gq = sl.dscale * t[q] * iu[q];
+          for (int q = 0; q < kHalf; ++q) {
+            const int p = half * kHalf + q;
+            float gq = sl.dscale * y[q] * iu[q];
             if (sl.half_a != 1) gq *= g[q];
-            // s_l - s_h = y_h - y_l; zero latent distance: no contribution
-            f[p] = (keep >> p) & 1u ? (yh[p] - t[q]) * gq : 0.f;
+            // zero latent distance: no contribution
+            f[p] = (keep >> p) & 1u ? (t[q] - yh[p]) * gq : 0.f;
           }
         }
       }

@@ -1,7 +1,8 @@
 // encodermap_tpu_torch/csrc/sigmoid_pairs.cuh
 //
-// The pair math of the sigmoid-loss kernels (sigmoid_loss.cu), with cheap
-// powers. One side's sketch-map sigmoid is
+// The pair math of the sigmoid-loss kernels (sigmoid_loss.cu) and of the
+// grid train kernel (fused_train.cu), with cheap powers. One side's
+// sketch-map sigmoid is
 //
 //   s(r) = 1 - u^e,   u = 1 + c (r/sig)^a,   e = -b/a,   c = 2^(a/b) - 1,
 //
@@ -14,9 +15,11 @@
 // * an even integer a: (r/sig)^a = (r^2 / sig^2)^(a/2), by squaring, with
 //   no sqrt (a Euclidean r^2 = 0 still gives s = 0); any other integer a:
 //   (r/sig)^a by squaring after one sqrt; other a: powf.
-// * e = -n (n = 1..16): one reciprocal and products; e = -(n + 1/2): one
-//   reciprocal square root and products; u^(e-1) = u^e / u from the same
-//   reciprocal. Other e: powf.
+// * s = 1 - u^e without the cancellation of 1 - u^e where c t is small
+//   (sig_s). e = -n (n = 1..16): one reciprocal and products; e = -(n +
+//   1/2): one reciprocal square root, products and the reciprocal of
+//   1 + u^(1/2); u^(e-1) = u^e / u from the same reciprocal. Other e:
+//   1 - powf.
 //
 // The reciprocal, reciprocal square root and square root are the MUFU
 // unit's approximations, one instruction each: rcp.approx.ftz.f32 and
@@ -28,9 +31,9 @@
 // longer at B=16384 on an H100.
 //
 // At the default parameters (4.5, 12, 6, 1, 2, 6) that is e = -0.5 on the
-// high-D side (one rsqrtf) and e = -3, e - 1 = -4 on the latent side (one
-// reciprocal), where common.cuh's sig_value takes two powf and a divide.
-// common.cuh keeps its formulas for the fused-train kernels.
+// high-D side (one rsqrtf and one reciprocal) and e = -3, e - 1 = -4 on the
+// latent side (one reciprocal), where common.cuh's sig_value takes two powf
+// and a divide. The cluster train kernel keeps common.cuh's formulas.
 #pragma once
 
 #include <cmath>
@@ -170,47 +173,14 @@ __device__ __forceinline__ void sig_t(const SideSig& s, float (&x)[NP]) {
   }
 }
 
-// t -> y = u^e in place, u = 1 + c t; iu = 1/u where the class computes it
-// anyway or WANT_IU asks for it (s'(r)/r takes u^(e-1) = y iu).
-template <int NP, bool WANT_IU>
-__device__ __forceinline__ void sig_y(const SideSig& s, float (&x)[NP], float (&iu)[NP]) {
-#pragma unroll
-  for (int p = 0; p < NP; ++p) x[p] = fmaf(s.c, x[p], 1.f);
-  if (s.e_kind == kNegHalf) {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const float rs = rsqrtf(x[p]);  // 2 ulp
-      iu[p] = rs * rs;
-      x[p] = rs;
-    }
-    if (s.e_n) {
-      float q[NP];
-#pragma unroll
-      for (int p = 0; p < NP; ++p) q[p] = iu[p];
-      pow_n(q, s.e_n);
-#pragma unroll
-      for (int p = 0; p < NP; ++p) x[p] *= q[p];
-    }
-  } else if (s.e_kind == kNegInt) {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) x[p] = iu[p] = rcp_approx(x[p]);
-    if (s.e_n > 1) pow_n(x, s.e_n);
-  } else {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      if (WANT_IU) iu[p] = rcp_approx(x[p]);
-      x[p] = powf(x[p], s.e);
-    }
-  }
-}
-
 // t -> s = 1 - u^e in place, u = 1 + c t, without the cancellation of
 // 1 - u^e where c t is small: e = -n as c t (u^-1 + ... + u^-n), and
 // e = -(n + 1/2) adds u^-n (1 - u^-1/2) = u^-n c t u^-1/2 / (1 + u^1/2);
-// other e as 1 - powf(u, e). Also y = u^e and iu = 1/u. The fused train
-// kernel takes this form: with sig_y's 1 - y, the 2-ulp error of y = u^e
-// near 1 (rsqrtf), of one sign on every pair, moved its parameters 500
-// times further from a float64 run in 100 steps than the plain version's
+// other e as 1 - powf(u, e), the reference's form. Also y = u^e and
+// iu = 1/u. Every kernel that includes this file takes this form: 1 - y
+// with the cheap y = u^e, whose 2-ulp error near u = 1 (rsqrtf) has one
+// sign on every pair, moved the grid train kernel's parameters 500 times
+// further from a float64 run in 100 steps than the plain version's
 // 1 - powf (an H100, [128,128,2], B=256, chip_smoke.py's float64 rule).
 template <int NP>
 __device__ __forceinline__ void sig_s(const SideSig& s, float (&x)[NP], float (&y)[NP],
@@ -230,13 +200,17 @@ __device__ __forceinline__ void sig_s(const SideSig& s, float (&x)[NP], float (&
   // x <- u^-1/2 where e = -(n + 1/2)
   if (s.e_kind == kNegHalf) {
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      x[p] = rsqrtf(1.f + ct[p]);
-      iu[p] = x[p] * x[p];
-    }
-  } else {
+    for (int p = 0; p < NP; ++p) x[p] = rsqrtf(1.f + ct[p]);
+  }
+  // iu: a reciprocal of its own where the sum below takes it (u^-1/2
+  // squared would give s an error of one sign, ~1 ulp at n = 3), else
+  // u^-1/2 squared
+  if (s.e_kind == kNegInt || s.e_n) {
 #pragma unroll
     for (int p = 0; p < NP; ++p) iu[p] = rcp_approx(1.f + ct[p]);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) iu[p] = x[p] * x[p];
   }
   // sum_{k=1..n} u^-k and y = u^-n
 #pragma unroll

@@ -47,7 +47,12 @@ The float64 ADC oracle (slice 6c): ``hand_adc_step`` on the card equals
 the CPU's to 1e-12 relative, and a small ADC's step on the card (the
 sigmoid-loss kernels) parts from it by at most 3x what the same step with
 their plain versions does, per parameter tensor and in the latent
-gradient of the sigmoid costs (``chip_smoke.py::adc_oracle_check``)."""
+gradient of the sigmoid costs (``chip_smoke.py::adc_oracle_check``).
+
+The general route against float64: 100 steps of ``EncoderMap(
+fused_trainer=False)`` at cube B=1024, seeds 0 and 1, stay within 3x the
+plain float32 step's distance from a float64 run of it
+(``chip_smoke.f64_rule``)."""
 
 import math
 
@@ -59,7 +64,8 @@ torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
-SIG = [(4.5, 12, 6, 1, 2, 6), (4.5, 6.0, 10.0, 1.0, 3.0, 7.0)]
+SIG = [(4.5, 12, 6, 1, 2, 6), (4.5, 6.0, 10.0, 1.0, 3.0, 7.0),
+       (4.5, 4.0, 6.0, 1.0, 2.0, 3.0)]
 
 
 @pytest.fixture
@@ -89,7 +95,7 @@ def _check_sigmoid(fs, h, l, params, periodicity):
     assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
 
 
-@pytest.mark.parametrize("params", SIG, ids=["a_l=2", "a_l=3"])
+@pytest.mark.parametrize("params", SIG, ids=["a_l=2", "a_l=3", "e=-1.5"])
 @pytest.mark.parametrize("B,D,d,periodicity", [
     (1000, 7, 2, float("inf")), (1000, 7, 2, 2 * math.pi),
     (777, 40, 3, 2 * math.pi), (300, 3, 6, float("inf")),
@@ -103,8 +109,9 @@ def test_sigmoid_kernels_match_plain(cuda, params, B, D, d, periodicity):
     32-column chunk (40, 128), a ragged 128-wide tile (4500), latent dims
     up to 10, and wider ones that are restaged per pass like a wide input
     (33, 100, 200, 1000; the backward takes 64-wide tiles for them, also at
-    a batch where the forward takes 128); the two parameter sets take the
-    cheap powers (e = -0.5, -3) and powf."""
+    a batch where the forward takes 128); the parameter sets take the
+    cheap powers (e = -0.5, -3), powf, and e = -1.5 on both sides (u^-1/2
+    and a reciprocal of u in the sum of sig_s)."""
     from encodermap_tpu_torch.ops import fused_sigmoid as fs
 
     h, l = (t.to(cuda) for t in _hl(B, D, d, math.isfinite(periodicity), B + D))
@@ -877,3 +884,25 @@ def test_adc_step_on_card_within_3x_of_plain_from_float64(cuda, tmp_path):
     batch = tuple(torch.tensor(cvs[k][:64], device=cuda) for k in CV_KEYS)
     out = adc_oracle_check(emap, batch, emap.state.step, "card test")
     assert len(out["errs"]) == 12 and out["loss_rel"] <= 1e-4
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_general_route_holds_float64_over_100_steps(cuda, seed):
+    """phase_general_f64's rule at cube B=1024: 100 steps of the general
+    route (EncoderMap(fused_trainer=False), the sigmoid-loss kernels) no
+    further from a float64 run of its step than three times the plain
+    float32 step (sketch-map loss on the general path), plus 1e-4 in
+    parameters and metrics and 1e-3 in the moments. On seed 0's batches
+    the plain float32 run itself leaves float64 between steps 60 and 100
+    (PERF.md), so the phase holds that seed after 10 steps and only logs
+    it after 100; here the rule is held on it after 100 all the same (the
+    kernels' route may take the plain run's turn, not go 3x further), and
+    on seed 1, where the plain run stays within F64_PART, at full
+    strength."""
+    import encodermap_tpu_torch as emt
+    from chip_smoke import F64_PART, f64_distances, f64_rule, general_f64_runs
+
+    dist = f64_distances(general_f64_runs(emt, "cube", 1024, seed, steps=(100,))[100])
+    if seed:
+        assert dist["plain f32"]["params"] <= F64_PART, dist
+    assert f64_rule(dist), dist

@@ -12,9 +12,11 @@ the card by tests/test_torch_cuda.py and chip_smoke.py.
 A numpy mirror of the CUDA kernels' schedule (``csrc/sigmoid_loss.cu``) is
 held against the same two JAX references: upper-triangular T x T tiles of the
 pair matrix, each unordered pair evaluated once with the kernels' cheap
-powers, the forward's per-tile partial (twice the off-diagonal sum plus the
-diagonal), and the backward's row and column partials written to (row,
-partner tile) slots and added per row in tile order.
+powers and their s = 1 - u^e without cancellation (``sig_s``), the forward's
+per-tile partial (twice the off-diagonal sum plus the diagonal), and the
+backward's row and column partials written to (row, partner tile) slots and
+added per row in tile order. The mirror's s is held to float64 within 4 ulp
+where c t is small, where 1 - u^e in float32 is not.
 
 Tolerances: the JAX kernel takes distances by the Gram identity, the port by
 direct differences; over B = 512 pairs of 30-wide rows that costs up to
@@ -183,22 +185,32 @@ def _sig_t(s, d2, periodic):
     return _pow_n(x, s["int_a"]) if s["int_a"] else np.power(x, F32(s["a"]))
 
 
-def _sig_y(s, t):
-    """(u**e, 1/u) with u = 1 + c t: reciprocal or rsqrt and products."""
-    u = F32(1) + s["c"] * t
+def _sig_s(s, t):
+    """(s, y, 1/u) with u = 1 + c t, y = u**e and s = 1 - y as the kernels
+    take it (sig_s), without the cancellation of 1 - y where c t is small:
+    e = -n as c t (u^-1 + ... + u^-n), e = -(n + 1/2) adds
+    u^-n c t u^-1/2 / (1 + u^1/2), other e as 1 - powf."""
+    ct = s["c"] * t
+    u = F32(1) + ct
     kind, n = s["kind"]
+    if kind == "powf":
+        y = np.power(u, s["e"])
+        return F32(1) - y, y, F32(1) / u
     if kind == "half":
         rs = F32(1) / np.sqrt(u)
-        iu = rs * rs
-        return (rs * _pow_n(iu, n) if n else rs), iu
-    iu = F32(1) / u
-    if kind == "int":
-        return _pow_n(iu, n), iu
-    return np.power(u, s["e"]), iu
+    iu = F32(1) / u if kind == "int" or n else rs * rs
+    total, y = np.zeros_like(t), np.ones_like(t)
+    for _ in range(n):
+        y = y * iu
+        total = total + y
+    if kind == "half":
+        h = rs * (F32(1) / (F32(1) + u * rs))  # (1 - u^-1/2) / (c t)
+        return ct * (total + y * h), y * rs, iu
+    return ct * total, y, iu
 
 
 def _tile_terms(h, l, ri, rj, sh, sl, periodicity):
-    """(y_h, y_l, d_l^2, s_l'(r)/r) of the pairs ri x rj, in float32."""
+    """(s_h, s_l, d_l^2, s_l'(r)/r) of the pairs ri x rj, in float32."""
     periodic = math.isfinite(periodicity)
     dh2 = np.zeros((len(ri), len(rj)), F32)
     for k in range(h.shape[1]):
@@ -212,9 +224,9 @@ def _tile_terms(h, l, ri, rj, sh, sl, periodicity):
     for k in range(l.shape[1]):
         t = l[ri, k][:, None] - l[rj, k][None, :]
         dl2 = dl2 + t * t
-    yh, _ = _sig_y(sh, _sig_t(sh, dh2, periodic))
+    s_h, _, _ = _sig_s(sh, _sig_t(sh, dh2, periodic))
     tl = _sig_t(sl, dl2, False)
-    yl, iu = _sig_y(sl, tl)
+    s_l, yl, iu = _sig_s(sl, tl)
     sig_l, a_l, b_l = sl["sig"], sl["a"], sl["b"]
     c = 2.0 ** (a_l / b_l) - 1.0
     if a_l == 2:
@@ -222,7 +234,7 @@ def _tile_terms(h, l, ri, rj, sh, sl, periodicity):
     else:
         with np.errstate(divide="ignore", invalid="ignore"):
             g = F32(b_l * c) * yl * iu * tl * (F32(1) / dl2)
-    return yh, yl, dl2, g
+    return s_h, s_l, dl2, g
 
 
 def _mirror(h, l, params, periodicity, T):
@@ -237,14 +249,14 @@ def _mirror(h, l, params, periodicity, T):
         for J in range(I, nt):
             ri = np.arange(I * T, min(I * T + T, n))
             rj = np.arange(J * T, min(J * T + T, n))
-            yh, yl, dl2, g = _tile_terms(h, l, ri, rj, sh, sl, periodicity)
+            s_h, s_l, dl2, g = _tile_terms(h, l, ri, rj, sh, sl, periodicity)
             diag = I == J
             upper = ri[:, None] < rj[None, :]
             w = (np.where(upper, F32(2), np.where(ri[:, None] == rj[None, :], F32(1),
                                                    F32(0))) if diag else F32(2))
-            partials.append(np.sum(w * (yl - yh) ** 2, dtype=F32))
+            partials.append(np.sum(w * (s_h - s_l) ** 2, dtype=F32))
             keep = (dl2 != 0) & (upper if diag else True)
-            f = np.where(keep, (yh - yl) * g, F32(0)).astype(F32)
+            f = np.where(keep, (s_l - s_h) * g, F32(0)).astype(F32)
             rows = f @ weights[rj]    # row partials of the I rows
             cols = f.T @ weights[ri]  # column partials of the J rows
             if diag:
@@ -313,3 +325,27 @@ def test_exponent_classes(cls):
               "e=-1/3,-2": (("powf", 0), 6, ("int", 2), 1),
               "powf": (("powf", 0), 3, ("powf", 0), 0)}[cls]
     assert (sh["kind"], sh["half_a"], sl["kind"], sl["half_a"]) == expect
+
+
+#: one side of each class of e whose s the kernels take as a sum, without
+#: the cancellation of 1 - u^e: e = -(n + 1/2) and e = -n (the powf class
+#: keeps 1 - powf, the JAX package's own form)
+SIG_S_SIDES = {"half n=0": (4.5, 12.0, 6.0), "half n=1": (1.0, 2.0, 3.0),
+               "int n=3": (1.0, 2.0, 6.0), "int n=2": (1.0, 2.0, 4.0)}
+
+
+@pytest.mark.parametrize("side", list(SIG_S_SIDES))
+def test_sig_s_has_no_cancellation(side):
+    """Where c t <= 1e-3, the mirror's float32 s is within 4 ulp of s from
+    the same t in float64; 1 - y in float32 is not: y = u^e rounds near 1,
+    and 1 - y keeps that rounding error of y, many ulp of a small s."""
+    s = _side(*SIG_S_SIDES[side])
+    assert s["kind"][0] == side.split()[0]
+    t = (np.geomspace(1e-7, 1e-3, 2000) / float(s["c"])).astype(F32)
+    got, y, _ = _sig_s(s, t)
+    ct = np.float64(s["c"]) * t.astype(np.float64)  # exact
+    want = -np.expm1(np.log1p(ct) * (-s["b"] / s["a"]))
+    ulp = np.spacing(want.astype(F32)).astype(np.float64)
+    assert got.dtype == F32 and y.dtype == F32
+    assert (np.abs(got - want) / ulp).max() <= 4
+    assert (np.abs((F32(1) - y) - want) / ulp).max() > 4
