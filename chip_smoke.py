@@ -413,7 +413,9 @@ def _fused_data(em, d0: int, periodic: bool) -> tuple:
     return data, rng
 
 
-def _fused_setup(em, ft, d0: int, periodic: bool, steps: int, B: int = 256):
+def _fused_weights(em, ft, d0: int, periodic: bool, B: int) -> tuple:
+    """The fused route's parameters at [128,128,2] from seed 0 for d0 input
+    columns: ``(p, flat, n_enc, zeros)``."""
     from encodermap_tpu_torch.models import sequential as seq
 
     p = em.Parameters(n_neurons=[128, 128, 2], batch_size=B,
@@ -421,11 +423,15 @@ def _fused_setup(em, ft, d0: int, periodic: bool, steps: int, B: int = 256):
     gen = torch.Generator().manual_seed(0)
     params = seq.init_params(gen, p, d0, device="cuda")
     flat, n_enc = ft.split_params(params)
+    return p, flat, n_enc, [torch.zeros_like(t) for t in flat]
+
+
+def _fused_setup(em, ft, d0: int, periodic: bool, steps: int, B: int = 256):
+    p, flat, n_enc, zeros = _fused_weights(em, ft, d0, periodic, B)
     data, rng = _fused_data(em, d0, periodic)
     data = torch.as_tensor(data, dtype=torch.float32, device="cuda")
     idx = torch.as_tensor(rng.integers(0, len(data), (steps, B)),
                           device="cuda")
-    zeros = [torch.zeros_like(t) for t in flat]
     return p, flat, n_enc, zeros, data, idx
 
 
@@ -476,8 +482,10 @@ def phase_fused(em, ft, B: int, hold_both: bool = True, margin: float = 0.0) -> 
     """The fused train kernels against their plain version at [128,128,2]
     and batch B, a shape either can run: 1 step, 5 steps tightly, 100 steps
     against a float64 run of the plain version, a second 100-step run bit
-    for bit; then both kernels' time on the same 500-step chunk, and each
-    kernel's split of a step by phase. Fails if the kernel fused_route picks
+    for bit; with ``hold_both`` also the cluster kernel against float64 on
+    F64_SEEDS after F64_STEPS (``fused_drift_runs``, ``hold_f64``'s gate);
+    then both kernels' time on the same 500-step chunk, and each kernel's
+    split of a step by phase. Fails if the kernel fused_route picks
     for the shape is slower than the other by more than ``margin`` (a
     share of the other's time). With ``hold_both`` false only that
     kernel is held, and not to the 100-step float64 rule: at B=288 on the
@@ -557,6 +565,18 @@ def phase_fused(em, ft, B: int, hold_both: bool = True, margin: float = 0.0) -> 
             log(f"{name} 100 steps run twice: bit-identical {same}")
             check(same, f"{name} differs between two runs of one chunk")
             errs[kernel] = err_p
+        if hold_both:
+            # the cluster kernel over seeds: a bias its plain version shares
+            # shows against float64 only
+            kind = "periodic" if periodic else "cube"
+            held = sum(hold_f64(f"[fused f64 {kind} B={B} seed {seed}]",
+                                fused_drift_runs(em, ft, kind, B, seed, F64_STEPS,
+                                                 ("fused_train_cluster",)),
+                                F64_STEPS, run="fused_train_cluster")
+                       for seed in F64_SEEDS)
+            log(f"[fused {tag}] fused_train_cluster held to float64 in {held} of "
+                f"{len(F64_SEEDS) * len(F64_STEPS)} readings (seeds {F64_SEEDS}, "
+                f"steps {F64_STEPS})")
 
         p, flat, n_enc, zeros, data, idx = _fused_setup(em, ft, d0, periodic, 500, B=B)
         runs = {k: dict(n_enc=n_enc, hyper=hyper, kernel=k) for k in FUSED_KERNELS}
@@ -747,12 +767,13 @@ def general_step(em, B: int, steps: int = 3) -> dict:
 #: a float32 run has left the float64 run where its largest parameter
 #: difference from it passes this (the part counts of PERF.md)
 F64_PART = 1e-4
-#: the general route's shapes phase_general_f64 holds to float64 (data, B),
-#: its seeds and the step counts it reads (periodic data parts the plain
-#: float32 run from float64 by step 60, so there step 10 is what is held)
+#: the general route's shapes phase_general_f64 holds to float64 (data, B);
+#: the seeds and the step counts it and phase_fused read (periodic data
+#: parts the plain float32 run from float64 by step 60, so there step 10 is
+#: what is held)
 GENERAL_F64_SHAPES = (("cube", 1024), ("periodic", 1024), ("config5", 256))
-GENERAL_F64_SEEDS = (0, 1, 2)
-GENERAL_F64_STEPS = (10, 100)
+F64_SEEDS = (0, 1, 2)
+F64_STEPS = (10, 100)
 
 
 def drift_setup(em, kind: str, B: int, seed: int, steps: int) -> tuple:
@@ -855,6 +876,24 @@ def fused_f64_runs(ft, flat: list, zeros: list, kw: dict, data, idx, kernels=(),
     return out
 
 
+def fused_drift_runs(em, ft, kind: str, B: int, seed: int, steps=(10, 60, 100),
+                     kernels=None) -> dict:
+    """``fused_f64_runs`` from the fused route's weights of seed 0 at
+    [128,128,2] over the data and batches ``drift_setup`` draws for
+    ``kind`` ("cube", "periodic" or config 5's 6-feature frames,
+    "config5"), for each fused kernel of ``kernels``: by default each one
+    that can take the shape."""
+    data, periodic, idx = drift_setup(em, kind, B, seed, max(steps))
+    p, flat, n_enc, zeros = _fused_weights(em, ft, data.shape[1], periodic, B)
+    if kernels is None:
+        dims = [flat[0].shape[0]] + [w.shape[1] for w in flat[:len(flat) // 2]]
+        kernels = [k for k in FUSED_KERNELS if k == "fused_train" or ft.cluster_footprint(
+            dims, n_enc, B, data.shape[1])["total"] <= ft.MAX_SMEM_BYTES]
+    return fused_f64_runs(ft, flat, zeros, dict(n_enc=n_enc, hyper=ft.hyper_from(p)),
+                          torch.as_tensor(data, dtype=torch.float32, device="cuda"),
+                          torch.as_tensor(idx, device="cuda"), kernels, steps)
+
+
 def f64_distances(res: dict) -> dict:
     """Each run's distance from the "f64" run in one entry of
     ``general_f64_runs`` or ``fused_f64_runs``: the largest parameter difference, the largest
@@ -877,25 +916,57 @@ def f64_rule(dist: dict, run: str = "kernels") -> bool:
             and k["moments"] <= 3 * p["moments"] + 1e-3)
 
 
+def f64_gate(dist: dict) -> str:
+    """Why ``f64_rule`` cannot tell a bias from rounding on these distances
+    (``f64_distances``), or "" where it can: where the plain float32 run
+    stays within F64_PART of float64 (ROADMAP.md, port rules) and the same
+    plain step on reversed rows, which differs from it only in the order of
+    its float32 sums, passes the rule itself (on periodic data the Adam
+    moments of the two orders can lie 16x apart after 10 steps)."""
+    if dist["plain f32"]["params"] > F64_PART:
+        return "the plain float32 run left float64"
+    if not f64_rule(dist, "plain f32 rows reversed"):
+        return "the plain step on reversed rows fails the rule itself"
+    return ""
+
+
+def hold_f64(name: str, res: dict, steps, run: str = "kernels", note: str = "") -> int:
+    """``run`` of ``res`` (``general_f64_runs`` or ``fused_f64_runs``) held
+    to ``f64_rule`` after each N of ``steps`` where ``f64_gate`` lets the
+    rule tell a bias from rounding, else logged. Returns the readings
+    held."""
+    held = 0
+    for n in steps:
+        dist = f64_distances(res[n])
+        why = f64_gate(dist)
+        log(f"{name} {n} steps, float64 loss {dist['f64']['loss']:.5f}; from "
+            "float64: " + "; ".join(
+                f"{r} params {d['params']:.3e} metrics {d['metrics']:.3e} "
+                f"moments {d['moments']:.3e} (loss {d['loss']:.5f})"
+                for r, d in dist.items() if r not in ("f64", "kernels again"))
+            + f"; {note}" + (f"not held: {why}" if why else "held to the rule"))
+        check(all(math.isfinite(d["loss"]) for d in dist.values()),
+              f"{name} non-finite loss after {n} steps")
+        if not why:
+            check(f64_rule(dist, run),
+                  f"{name} further from f64 than 3x the plain version after {n} steps")
+            held += 1
+    return held
+
+
 def phase_general_f64(em, _build) -> dict:
     """The general route against float64 at each of GENERAL_F64_SHAPES and
-    GENERAL_F64_SEEDS after GENERAL_F64_STEPS (``general_f64_runs``): the
-    kernels' route held to ``f64_rule`` at each step count where the rule
-    can tell a bias from rounding, else logged; and bit for bit over two
-    runs. The rule tells them apart where the plain float32 run stays
-    within F64_PART of float64 (ROADMAP.md, port rules) and the same plain
-    step on reversed rows, which differs from it only in the order of its
-    float32 sums, passes the rule itself: on periodic data the Adam
-    moments of the two orders can lie 16x apart after 10 steps. Returns
-    the sigmoid kernels' launches."""
+    F64_SEEDS after F64_STEPS (``general_f64_runs``): the kernels' route
+    held to ``f64_rule`` by ``hold_f64``'s gate, and bit for bit over two
+    runs. Returns the sigmoid kernels' launches."""
     t0 = time.perf_counter()
     launches = {"sigmoid_fwd": 0, "sigmoid_bwd": 0}
-    n_last = GENERAL_F64_STEPS[-1]
+    n_last = F64_STEPS[-1]
     for kind, B in GENERAL_F64_SHAPES:
-        for seed in GENERAL_F64_SEEDS:
+        for seed in F64_SEEDS:
             name = f"[general f64 {kind} B={B} seed {seed}]"
             _build.launch_counts.clear()
-            res = general_f64_runs(em, kind, B, seed, GENERAL_F64_STEPS, kernel_runs=2)
+            res = general_f64_runs(em, kind, B, seed, F64_STEPS, kernel_runs=2)
             torch.cuda.synchronize()
             counts = dict(_build.launch_counts)
             check(counts == {"sigmoid_fwd": 2 * n_last, "sigmoid_bwd": 2 * n_last},
@@ -905,25 +976,8 @@ def phase_general_f64(em, _build) -> dict:
             (pk, ok, mk), (pa, oa, ma) = res[n_last]["kernels"], res[n_last]["kernels again"]
             same = all(torch.equal(a, b) for a, b in zip(pk + ok + [mk], pa + oa + [ma]))
             check(same, f"{name} the kernels' route differs between two runs")
-            for n in GENERAL_F64_STEPS:
-                dist = f64_distances(res[n])
-                stays = dist["plain f32"]["params"] <= F64_PART
-                null = f64_rule(dist, "plain f32 rows reversed")
-                log(f"{name} {n} steps, float64 loss {dist['f64']['loss']:.5f}; from "
-                    "float64: " + "; ".join(
-                        f"{r} params {d['params']:.3e} metrics {d['metrics']:.3e} "
-                        f"moments {d['moments']:.3e} (loss {d['loss']:.5f})"
-                        for r, d in dist.items() if r not in ("f64", "kernels again"))
-                    + f"; kernels run twice: bit-identical {same}; "
-                    + ("held to the rule" if stays and null else
-                       "not held: " + ("the plain float32 run left float64" if not stays
-                                       else "the plain step on reversed rows fails the "
-                                       "rule itself")))
-                check(all(math.isfinite(d["loss"]) for d in dist.values()),
-                      f"{name} non-finite loss after {n} steps")
-                if stays and null:
-                    check(f64_rule(dist),
-                          f"{name} further from f64 than 3x the plain version after {n} steps")
+            hold_f64(name, res, F64_STEPS,
+                     note=f"kernels run twice: bit-identical {same}; ")
     log(f"[leg] phase_general_f64: {time.perf_counter() - t0:.1f} s wall")
     return launches
 

@@ -1,72 +1,33 @@
 // encodermap_tpu_torch/csrc/common.cuh
 //
-// Shared device code of the port's kernels: the sketch-map sigmoid, its
-// derivative over r, and the guarded square root. The same formulas as
-// encodermap_tpu_torch/ops/distances.py (sig_value, dsig_over_r,
-// sqrt_guard), which the kernels' plain versions use.
+// What the kernel libraries of the port share besides the pair math
+// (sigmoid_pairs.cuh): Adam's constants for both train kernels, and the
+// error string each Python wrapper raises with.
 #pragma once
 
 #include <cmath>
 #include <cuda_runtime.h>
 
-// One sketch-map sigmoid s(r) = 1 - (1 + c (r/sig)^a)^(-b/a), its constants
-// computed once on the host in double precision.
-struct Sig {
-  float sig;       // sigma
-  float a;         // exponent a
-  int ia;          // a when it is an integer in [1, 32] (powered by products)
-  int a_is_2;      // the smooth a == 2 form of s'(r)/r
-  float c;         // 2^(a/b) - 1
-  float e;         // -b/a
-  float e1;        // -b/a - 1
-  float bc;        // b * c
-  float inv_sig2;  // 1 / sig^2
+// Adam's constants at step t (1-based): b1 = 0.9, b2 = 0.999, and 1 - b1
+// and 1 - b2 rounded to float from double, as the plain version
+// (ops/fused_train.py::_adam_update) and the JAX package's _adam_update
+// take them (1.f - 0.999f is 1.3e-5 away from 0.001f, a one-signed error
+// in every second moment); the bias corrections 1 - b^t within 2e-7 of
+// the plain version's, taken in double (1.f - powf(0.999f, t) is up to
+// 2e-5 off), as -expm1(t log b) with log b rounded from double (a double
+// pow on the card took 4 us of a step).
+struct AdamStep {
+  float b1, b2, c1, c2, bc1, bc2;
 };
 
-inline Sig make_sig(double sig, double a, double b) {
-  Sig s;
-  const double c = std::pow(2.0, a / b) - 1.0;
-  s.sig = static_cast<float>(sig);
-  s.a = static_cast<float>(a);
-  s.ia = (a == std::floor(a) && a >= 1.0 && a <= 32.0) ? static_cast<int>(a) : 0;
-  s.a_is_2 = a == 2.0;
-  s.c = static_cast<float>(c);
-  s.e = static_cast<float>(-b / a);
-  s.e1 = static_cast<float>(-b / a - 1.0);
-  s.bc = static_cast<float>(b * c);
-  s.inv_sig2 = static_cast<float>(1.0 / (sig * sig));
-  return s;
-}
-
-// x^a: integer exponents by repeated squaring (as jax.lax.integer_pow
-// computes the JAX package's `x ** 12`), others by powf.
-__device__ __forceinline__ float pow_a(float x, const Sig& s) {
-  if (s.ia) {
-    float r = 1.f, base = x;
-    for (int n = s.ia; n; n >>= 1) {
-      if (n & 1) r *= base;
-      base *= base;
-    }
-    return r;
-  }
-  return powf(x, s.a);
-}
-
-__device__ __forceinline__ float sig_value(float r, const Sig& s) {
-  return 1.f - powf(1.f + s.c * pow_a(r / s.sig, s), s.e);
-}
-
-// s'(r)/r; r2 is r*r, exactly zero on the diagonal.
-__device__ __forceinline__ float dsig_over_r(float r2, float r, const Sig& s) {
-  if (s.a_is_2) return s.bc * s.inv_sig2 * powf(1.f + s.c * r2 * s.inv_sig2, s.e1);
-  if (r2 == 0.f) return 0.f;
-  const float t = pow_a(r / s.sig, s);
-  return s.bc * t * powf(1.f + s.c * t, s.e1) / (r * r);
-}
-
-// sqrt with an exact zero where the squared distance is zero.
-__device__ __forceinline__ float sqrt_guard(float d2) {
-  return d2 == 0.f ? 0.f : sqrtf(d2);
+__device__ __forceinline__ AdamStep adam_step(double t) {
+  const float tf = static_cast<float>(t);
+  return AdamStep{0.9f,
+                  0.999f,
+                  static_cast<float>(1.0 - 0.9),
+                  static_cast<float>(1.0 - 0.999),
+                  -expm1f(tf * -0.105360515657826281f),     // log(0.9)
+                  -expm1f(tf * -0.00100050033358353350f)};  // log(0.999)
 }
 
 // Each kernel library is one translation unit that includes this header once.

@@ -699,9 +699,8 @@ __device__ __noinline__ void pair_gradients(const Args& a, int r0, int nr, int r
 // clip to +-1), the gradient the sum of the G row groups' slots in group
 // order; returns the thread's share of sum(W^2) over the old weights.
 __device__ __noinline__ float adam(const Args& a, int s, int cta, int n_ctas) {
-  const float t = static_cast<float>(a.step0 + s + 1);
-  const float b1 = 0.9f, b2 = 0.999f, eps = 1e-7f;
-  const float bc1 = 1.f - powf(b1, t), bc2 = 1.f - powf(b2, t);
+  const AdamStep ad = adam_step(a.step0 + s + 1);
+  const float eps = 1e-7f;
   const float* wslot = a.scratch + a.wslot_off;
   float* params = a.params;
   float* mu = a.mu;
@@ -721,11 +720,11 @@ __device__ __noinline__ float adam(const Args& a, int s, int cta, int n_ctas) {
       reg += p * p;
     }
     g = fminf(fmaxf(g, -1.f), 1.f);
-    const float m = b1 * __ldcg(mu + e) + (1.f - b1) * g;
-    const float v = b2 * __ldcg(nu + e) + (1.f - b2) * g * g;
+    const float m = ad.b1 * __ldcg(mu + e) + ad.c1 * g;
+    const float v = ad.b2 * __ldcg(nu + e) + ad.c2 * g * g;
     mu[e] = m;
     nu[e] = v;
-    params[e] = p - lr * (m / bc1) / (sqrtf(v / bc2) + eps);
+    params[e] = p - lr * (m / ad.bc1) / (sqrtf(v / ad.bc2) + eps);
   }
   return reg;
 }

@@ -34,13 +34,17 @@
 // sketch-map terms of its own rows against half of all rows, so that each
 // unordered pair is evaluated once in the cluster; the latent gradient of
 // its rows reads the other half from the CTAs that own them, after a later
-// barrier. Backward, per layer: each CTA computes its rows' delta of the
-// previous layer from the layer's old weights (staged while the layer
-// after it was reduced), then its partial weight and bias gradients over
-// its rows into the same buffer; after a cluster
-// barrier the owner of each 1/C slice of the layer adds the C partials in a
-// fixed order, adds the L2 term, clips, and updates Adam's moments and the
-// parameters in place in global memory; a second barrier frees the buffer.
+// barrier. A pair's sketch-map sigmoids are sigmoid_pairs.cuh's (sig_t,
+// sig_s), the one pair function of all four kernels of the port: the grid
+// train kernel and the two sigmoid-loss kernels take it too, so the
+// function a user trains on does not change with the route. Backward, per
+// layer: each CTA computes its rows' delta of the previous layer from the
+// layer's old weights (staged while the layer after it was reduced), then
+// its partial weight and bias gradients over its rows into the same
+// buffer; after a cluster barrier the owner of each 1/C slice of the layer
+// adds the C partials in a fixed order, adds the L2 term, clips, and
+// updates Adam's moments and the parameters in place in global memory; a
+// second barrier frees the buffer.
 // Barriers: 1 + 2 per layer per step, all hardware cluster barriers (about
 // 1,000 cycles each on the H100). Sums are taken in a fixed order (metric
 // partials per CTA, added by rank 0 in rank order; no float atomics), so a
@@ -56,6 +60,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "sigmoid_pairs.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -98,7 +103,7 @@ struct Args {
   float period;
   float auto_scale, center_scale, l2, dist_scale, lr;
   double step0;
-  Sig sh, sl;
+  SideSig sh, sl;
 };
 
 __device__ __forceinline__ bool is_tanh(const Args& a, int l) {
@@ -386,9 +391,16 @@ __device__ void loss_phase(const Args& a, float* sm, cg::cluster_group& cluster,
 
   // sketch-map sigmoid, half the pairs: row i takes j = (i + t) mod B for
   // t = 1 .. B/2 (t = B/2, for even B, only where i < B/2), so each
-  // unordered pair is evaluated once in the cluster. Its s'(r)/r-weighted
-  // difference m goes to pairs[r][t - 1]; pair_gradients reads the other
-  // half from the CTAs that own those rows. One warp per own row.
+  // unordered pair is evaluated once in the cluster. Each side's s as every
+  // kernel of the port takes it (sigmoid_pairs.cuh: sig_t, then sig_s,
+  // without the cancellation of 1 - u^e near u = 1), one pair a lane at a
+  // time: a tile of 2 or 4 pairs a lane cut this phase by 1.2 and 2.4 us at
+  // B=256 on an H100 but grew the kernel's code by 10 and 21 % and its
+  // other phases by as much, and the step was no faster (PERF.md). The
+  // pair's s'(r)/r-weighted difference m = (s_l - s_h) dscale u^(e-1)
+  // [t / r^2 unless a == 2], 0 where the latent distance is 0, goes to
+  // pairs[r][t - 1]; pair_gradients reads the other half from the CTAs
+  // that own those rows. One warp per own row.
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int hw = B / 2;
   float* pairs = sm + a.pair_off;
@@ -416,10 +428,17 @@ __device__ void loss_phase(const Args& a, float* sm, cg::cluster_group& cluster,
         const float d = lall[i * dl + k] - lall[j * dl + k];
         dl2 += d * d;
       }
-      const float rl = sqrt_guard(dl2);
-      const float sdiff = sig_value(rl, a.sl) - sig_value(sqrt_guard(dh2), a.sh);
+      float sh[1] = {dh2}, sl[1] = {dl2}, y[1], iu[1], g = 0.f;
+      sig_t<1, false>(a.sh, sh);
+      sig_s<1>(a.sh, sh, y, iu);
+      sig_t<1, false>(a.sl, sl);
+      if (a.sl.half_a != 1) g = sl[0] / dl2;  // t / r^2, 0 where t underflows
+      sig_s<1>(a.sl, sl, y, iu);
+      const float sdiff = sl[0] - sh[0];
       sq += sdiff * sdiff;
-      pairs[r * hw + t - 1] = sdiff * dsig_over_r(dl2, rl, a.sl);
+      float gq = a.sl.dscale * y[0] * iu[0];
+      if (a.sl.half_a != 1) gq *= g;
+      pairs[r * hw + t - 1] = dl2 != 0.f ? sdiff * gq : 0.f;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) sq += __shfl_down_sync(0xffffffffu, sq, off);
@@ -589,9 +608,8 @@ __device__ float owner_adam(const Args& a, float* sm, cg::cluster_group& cluster
                             int l, int s) {
   const int n_w = a.din[l] * a.dout[l], n = n_w + a.dout[l];
   const int lo = n * rank / kCluster, hi = n * (rank + 1) / kCluster;
-  const float t = static_cast<float>(a.step0 + s + 1);
-  const float b1 = 0.9f, b2 = 0.999f, eps = 1e-7f;
-  const float bc1 = 1.f - powf(b1, t), bc2 = 1.f - powf(b2, t);
+  const AdamStep ad = adam_step(a.step0 + s + 1);
+  const float eps = 1e-7f;
   const float* peers[kCluster];
 #pragma unroll
   for (int c = 0; c < kCluster; ++c)
@@ -609,11 +627,11 @@ __device__ float owner_adam(const Args& a, float* sm, cg::cluster_group& cluster
       reg += p * p;
     }
     g = fminf(fmaxf(g, -1.f), 1.f);
-    const float mu = b1 * m + (1.f - b1) * g;
-    const float nu = b2 * v + (1.f - b2) * g * g;
+    const float mu = ad.b1 * m + ad.c1 * g;
+    const float nu = ad.b2 * v + ad.c2 * g * g;
     __stcg(a.mu + i, mu);
     __stcg(a.nu + i, nu);
-    __stcg(a.params + i, p - a.lr * (mu / bc1) / (sqrtf(nu / bc2) + eps));
+    __stcg(a.params + i, p - a.lr * (mu / ad.bc1) / (sqrtf(nu / ad.bc2) + eps));
   }
   return reg;
 }
@@ -854,8 +872,8 @@ int em_fused_train_cluster(float* params, float* mu, float* nu, const float* dat
   a.center_scale = static_cast<float>(hyper[1]);
   a.l2 = static_cast<float>(hyper[2]);
   a.dist_scale = static_cast<float>(hyper[3]);
-  a.sh = make_sig(hyper[4], hyper[5], hyper[6]);
-  a.sl = make_sig(hyper[7], hyper[8], hyper[9]);
+  a.sh = make_side(hyper[4], hyper[5], hyper[6]);
+  a.sl = make_side(hyper[7], hyper[8], hyper[9]);
   a.periodic = std::isfinite(hyper[10]) ? 1 : 0;
   a.period = static_cast<float>(a.periodic ? hyper[10] : 0.0);
   a.lr = static_cast<float>(hyper[11]);

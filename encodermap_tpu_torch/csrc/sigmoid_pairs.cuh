@@ -1,8 +1,9 @@
 // encodermap_tpu_torch/csrc/sigmoid_pairs.cuh
 //
-// The pair math of the sigmoid-loss kernels (sigmoid_loss.cu) and of the
-// grid train kernel (fused_train.cu), with cheap powers. One side's
-// sketch-map sigmoid is
+// The pair math of every kernel of the port: the sigmoid-loss kernels
+// (sigmoid_loss.cu) and both train kernels (fused_train.cu,
+// fused_train_cluster.cu), with cheap powers. One side's sketch-map sigmoid
+// is
 //
 //   s(r) = 1 - u^e,   u = 1 + c (r/sig)^a,   e = -b/a,   c = 2^(a/b) - 1,
 //
@@ -32,8 +33,7 @@
 //
 // At the default parameters (4.5, 12, 6, 1, 2, 6) that is e = -0.5 on the
 // high-D side (one rsqrtf and one reciprocal) and e = -3, e - 1 = -4 on the
-// latent side (one reciprocal), where common.cuh's sig_value takes two powf
-// and a divide. The cluster train kernel keeps common.cuh's formulas.
+// latent side (one reciprocal), where 1 - powf(u, e) takes a powf each.
 #pragma once
 
 #include <cmath>

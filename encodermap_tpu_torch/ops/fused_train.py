@@ -18,10 +18,13 @@ B x B pairs; min-image where periodic), the hand-derived backward pass of
 :func:`fused_route` picks one by shape before the launch: the grid kernel
 from :data:`GRID_MIN_BATCH` rows on, and wherever the cluster kernel's
 per-CTA footprint (:func:`cluster_footprint`) exceeds the 227 KB of shared
-memory a block may use. Their plain
-version is :func:`fused_chunk_plain`: :func:`hand_step` plus
-:func:`_adam_update`, looped over the steps. :func:`fused_chunk` launches a
-kernel for CUDA tensors and runs the plain version only for CPU tensors.
+memory a block may use. Both evaluate each sketch-map pair with
+``csrc/sigmoid_pairs.cuh`` (s = 1 - u^e without the cancellation of
+1 - u^e near u = 1), as the sigmoid-loss kernels do. Their plain version
+is :func:`fused_chunk_plain`: :func:`hand_step` plus :func:`_adam_update`,
+looped over the steps, with the JAX package's 1 - (1 + c t)^e.
+:func:`fused_chunk` launches a kernel for CUDA tensors and runs the plain
+version only for CPU tensors.
 
 Unlike the TPU kernel, the fold-out uses the native ``atan2``: the TPU needed
 the polynomial ``_poly_atan2`` only because Mosaic has no atan2.

@@ -168,6 +168,19 @@ def _own_names(mod, pkg: str) -> set:
     return out
 
 
+def _import_submodules(pkg) -> None:
+    """Import every Python submodule of the package ``pkg``: a package's
+    attributes include the submodules imported so far, so without this its
+    names would depend on what earlier tests in the process imported."""
+    import importlib
+    import importlib.util
+    import pkgutil
+
+    for info in pkgutil.walk_packages(getattr(pkg, "__path__", []), pkg.__name__ + "."):
+        if str(importlib.util.find_spec(info.name).origin).endswith(".py"):
+            importlib.import_module(info.name)
+
+
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_subpackage_names_match_jax(sub):
     import importlib
@@ -178,6 +191,8 @@ def test_subpackage_names_match_jax(sub):
         f"encodermap_tpu.{sub}")
     got = emt.callbacks if sub == "callbacks" else importlib.import_module(
         f"encodermap_tpu_torch.{sub}")
+    _import_submodules(ref)
+    _import_submodules(got)
     missing = (_own_names(ref, "encodermap_tpu") - _own_names(got, "encodermap_tpu_torch")
                - set(KERNEL_MODULES))
     assert missing <= LATER_NAMES.get(sub, set())

@@ -52,7 +52,9 @@ gradient of the sigmoid costs (``chip_smoke.py::adc_oracle_check``).
 The general route against float64: 100 steps of ``EncoderMap(
 fused_trainer=False)`` at cube B=1024, seeds 0 and 1, stay within 3x the
 plain float32 step's distance from a float64 run of it
-(``chip_smoke.f64_rule``)."""
+(``chip_smoke.f64_rule``); so does the cluster train kernel over 100
+steps at cube B=256, seeds 0 and 1, under ``chip_smoke.hold_f64``'s
+gate."""
 
 import math
 
@@ -239,6 +241,53 @@ def test_fused_train_kernel_matches_plain(cuda, periodic, n_neurons, d0, B, kern
     for a, b in zip(km + kv, pm + pv):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
     assert float(((kmet - pmet).abs() / pmet.abs()).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("kernel", ["fused_train_cluster", "fused_train"])
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+@pytest.mark.parametrize("sig", SIG + [(4.5, 10.5, 6.0, 1.0, 2.5, 5.0)],
+                         ids=["a_l=2", "a_l=3", "e=-1.5", "powf a"])
+def test_fused_train_kernels_match_plain_at_each_exponent_class(cuda, periodic, sig, kernel):
+    """Both fused kernels take the pair function of csrc/sigmoid_pairs.cuh
+    for every class of exponent (a sum for e = -n and e = -(n + 1/2), else
+    1 - powf; an even a by squaring, else a sqrt, and powf for a non-integer
+    a; t / r^2 where a_l != 2): five steps at [128,128,2] and B=255 (odd:
+    each row takes B // 2 partners) against the plain version, to the
+    bounds of test_fused_train_kernel_matches_plain."""
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    flat, z, data, idx, kw = _fused_case(cuda, [128, 128, 2], 4 if periodic else 3, 255,
+                                         periodic, 5, n_data=5000)
+    kw["hyper"]["losses"]["dist_sig_parameters"] = sig
+    kp, km, kv, kmet = ft.fused_chunk(flat, z, z, 0.0, data, idx, kernel=kernel, **kw)
+    pp, pm, pv, pmet = ft.fused_chunk_plain(flat, z, z, 0.0, data, idx, **kw)
+    for a, b in zip(kp, pp):
+        assert float((a - b).abs().max()) <= 1e-4
+    for a, b in zip(km + kv, pm + pv):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    assert float(((kmet - pmet).abs() / pmet.abs()).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("kernel", ["fused_train_cluster", "fused_train"])
+def test_fused_train_kernels_adam_moments_carry_no_one_signed_error(cuda, kernel):
+    """Adam's moments take 1 - b1 and 1 - b2 as the floats nearest 0.1 and
+    0.001, as the plain version does (1.f - 0.999f is 1.3e-5 below 0.001):
+    after three steps the median over all parameters of each moment's
+    relative deviation from a float64 run of the plain version is within
+    1e-6 (unbiased rounding gives ~1e-8 there; the float 1 - b2 gave
+    1.3e-5 in every second moment)."""
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    flat, z, data, idx, kw = _fused_case(cuda, [128, 128, 2], 3, 256, False, 3, n_data=5000)
+    z64 = [t.double() for t in z]
+    _, m64, v64, _ = ft.fused_chunk_plain([t.double() for t in flat], z64, z64, 0.0,
+                                          data.double(), idx, **kw)
+    _, mk, vk, _ = ft.fused_chunk(flat, z, z, 0.0, data, idx, kernel=kernel, **kw)
+    for got, want in ((mk, m64), (vk, v64)):
+        g = torch.cat([t.double().reshape(-1) for t in got])
+        w = torch.cat([t.reshape(-1) for t in want])
+        keep = w != 0
+        assert float(((g[keep] - w[keep]) / w[keep]).median().abs()) <= 1e-6
 
 
 def test_fused_router_takes_the_kernel_the_shape_fits(cuda):
@@ -906,3 +955,22 @@ def test_general_route_holds_float64_over_100_steps(cuda, seed):
     if seed:
         assert dist["plain f32"]["params"] <= F64_PART, dist
     assert f64_rule(dist), dist
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cluster_kernel_holds_float64_over_100_steps(cuda, seed):
+    """phase_fused's float64 hold of the cluster kernel at cube B=256: after
+    10 and 100 steps from seed 0's weights over seed ``seed``'s batches, no
+    further from a float64 run of its plain version than three times the
+    plain float32 version, plus 1e-4 in parameters and metrics and 1e-3 in
+    the moments, wherever the plain run stays within F64_PART of float64
+    and the plain run on reversed rows passes the rule itself
+    (``chip_smoke.hold_f64``). On the cube no float32 run leaves float64 by
+    step 10 on any of 16 seeds (PERF.md), so that reading is always held."""
+    import encodermap_tpu_torch as emt
+    from chip_smoke import fused_drift_runs, hold_f64
+    from encodermap_tpu_torch.ops import fused_train as ft
+
+    res = fused_drift_runs(emt, ft, "cube", 256, seed, (10, 100), ("fused_train_cluster",))
+    assert hold_f64(f"[cube B=256 seed {seed}]", res, (10, 100),
+                    run="fused_train_cluster") >= 1

@@ -8,7 +8,10 @@ kernel in interpret mode and against JAX's hand_step + _adam_update, as
 tests/test_pallas_train.py holds the JAX kernel; hand_step's gradients are
 held against a float64 autograd oracle. The CUDA kernel itself is compared
 with the plain version on the card by tests/test_torch_cuda.py and
-chip_smoke.py.
+chip_smoke.py. A float32 numpy mirror of the cluster kernel's pair phase
+(half of the pairs per row, each side's s from sigmoid_pairs.cuh's sums)
+is held against hand_step's sketch-map term and its gradient, and near
+u = 1 against a float64 evaluation.
 
 Tolerances: float32 sums in another order than XLA's. Parameters agree to
 2e-5 (Adam divides each gradient by its magnitude, so near-zero gradient
@@ -370,3 +373,187 @@ def test_grid_plan_fits_the_clusters_the_card_holds():
         FT.grid_plan(_CUBE, 3, 256, 3, 0)
     with pytest.raises(ValueError, match="layer table"):
         FT.grid_plan([3] + [8] * 16 + [3], 9, 256, 3, 30)
+
+
+# ------------------------- numpy mirror of the cluster kernel's pair phase
+#: sigmoid parameters of the mirror's cases: the defaults (e = -0.5 and -3,
+#: sig_s's sums), e = -1.5 on both sides (its half-integer sums) and a
+#: non-integer a on both sides (powf for t; e = -4/7 keeps 1 - powf on the
+#: high side, e = -2 takes a sum on the latent side, with t / r^2)
+PAIR_SIGS = {"defaults": (4.5, 12, 6, 1, 2, 6), "e=-1.5": (4.5, 4, 6, 1, 2, 3),
+             "powf a": (4.5, 10.5, 6, 1, 2.5, 5)}
+
+
+def _cluster_pair_phase(x, lat, params, periodicity):
+    """Float32 mirror of csrc/fused_train_cluster.cu's pair phase and
+    pair_gradients: row i takes j = (i + t) mod B for t = 1 .. B/2 (t = B/2,
+    for even B, only where i < B/2), each unordered pair once; both sides
+    through the kernels' t and s (sig_t, sig_s: test_torch_fused_sigmoid's
+    mirror), the high side's min-image distance without the sigmoid
+    kernels' 1e-12 (hand_step's); m = (s_l - s_h) dscale u^(e-1) [t / r^2
+    unless a == 2], 0 where the latent distance is 0. Returns the sigmoid
+    loss (twice each pair's squared difference over B^2) and the latent
+    gradient (4 / B^2) (sum_j m_ij l_i - sum_j m_ij l_j)."""
+    from tests.test_torch_fused_sigmoid import F32, _side, _sig_s, _sig_t
+
+    B = len(x)
+    sh, sl = _side(*params[:3]), _side(*params[3:])
+    hw = B // 2
+    i, t = np.repeat(np.arange(B), hw), np.tile(np.arange(1, hw + 1), B)
+    keep = ~((B % 2 == 0) & (i >= hw) & (t == hw))
+    i, t = i[keep], t[keep]
+    j = (i + t) % B
+    assert len({(min(a, b), max(a, b)) for a, b in zip(i, j)}) == len(i) == B * (B - 1) // 2
+    dh2 = np.zeros(len(i), F32)
+    for k in range(x.shape[1]):
+        d = x[i, k] - x[j, k]
+        if math.isfinite(periodicity):
+            d = np.abs(d)
+            d = np.minimum(d, F32(periodicity) - d)
+        dh2 = dh2 + d * d
+    dl2 = np.zeros(len(i), F32)
+    for k in range(lat.shape[1]):
+        d = lat[i, k] - lat[j, k]
+        dl2 = dl2 + d * d
+    s_h, _, _ = _sig_s(sh, _sig_t(sh, dh2, False))
+    tl = _sig_t(sl, dl2, False)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        g = tl / dl2
+    s_l, y, iu = _sig_s(sl, tl)
+    sdiff = s_l - s_h
+    sig, a, b = params[3:]
+    c = 2.0 ** (a / b) - 1.0
+    gq = F32(b * c / sig ** 2 if a == 2 else b * c) * y * iu
+    if a != 2:
+        gq = gq * g
+    m = np.where(dl2 != 0, sdiff * gq, F32(0))
+    loss = float(np.sum(F32(2) * sdiff * sdiff, dtype=F32)) / (B * B)
+    M = np.zeros((B, B), F32)
+    M[i, j] = m
+    M[j, i] = m
+    return loss, F32(4.0 / (B * B)) * (M.sum(1)[:, None] * lat - M @ lat)
+
+
+def _pair_case(periodic, B, seed):
+    """Rows of d0 = 3 (cube) or 4 (periodic) columns and the weights of a
+    linear encoder onto 2 latent columns, with a decoder back: the inputs
+    of hand_step whose latent is x0 W + b."""
+    rng = np.random.default_rng(seed)
+    d0 = 4 if periodic else 3
+    x = (rng.uniform(-np.pi, np.pi, (B, d0)) if periodic
+         else rng.uniform(0.0, 8.0, (B, d0))).astype(np.float32)
+    x0 = 2 * d0 if periodic else d0
+    w = (rng.standard_normal((x0, 2)) / math.sqrt(x0)).astype(np.float32)
+    bias = (rng.standard_normal(2) * 0.1).astype(np.float32)
+    dec = (rng.standard_normal((2, x0)) * 0.5).astype(np.float32)
+    return x, w, bias, dec
+
+
+def _jax_hand_step_sigmoid(x, w, bias, dec, params, periodicity):
+    """hand_step with every loss scale but the sketch-map one at zero:
+    (its latent, its sigmoid loss, its gradient of the encoder's weights
+    x0^T G and bias sum_i G_i, G the loss's latent gradient)."""
+    periodic = math.isfinite(periodicity)
+    xj = jnp.asarray(x)
+    x0 = jnp.concatenate([jnp.sin(xj), jnp.cos(xj)], axis=1) if periodic else xj
+    lat = jax.lax.dot_general(x0, jnp.asarray(w), (((1,), (0,)), ((), ())),
+                              precision=jax.lax.Precision.HIGHEST) + jnp.asarray(bias)
+    gew, geb, _, _, met = PT.hand_step(
+        [jnp.asarray(w)], [jnp.asarray(bias)], [jnp.asarray(dec)],
+        [jnp.zeros(dec.shape[1], jnp.float32)], xj, dist_sig_parameters=params,
+        auto_cost_scale=0.0, center_cost_scale=0.0, l2_reg_constant=0.0,
+        distance_cost_scale=1.0, periodicity=periodicity)
+    return (np.asarray(lat), float(met[3]), np.asarray(gew[0]), np.asarray(geb[0]),
+            np.asarray(x0))
+
+
+@pytest.mark.parametrize("sig", list(PAIR_SIGS))
+@pytest.mark.parametrize("B", [32, 33], ids=["B=32", "B=33"])
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+def test_cluster_pair_phase_matches_jax_hand_step(periodic, B, sig):
+    """The mirror's loss and latent gradient against hand_step's (the JAX
+    package's 1 - (1 + c t)^e, plain JAX on the CPU), which gives the
+    gradient as the encoder's x0^T G and sum_i G_i, and per row against
+    autodiff of the JAX package's sigmoid_loss on the same latent (its
+    periodic 1e-12 guards move no float32 distance here). Tolerances: the
+    two forms of s differ by a few ulp a pair, and the sums run in another
+    order: the loss to 1e-5 relative, the latent gradient to 1e-5 of its
+    largest entry, and each entry of x0^T G and sum_i G_i (whose rows
+    cancel: sum_i G_i is zero but for rounding) to 1e-5 of the sum of its
+    terms' magnitudes (measured: 2e-6, 1e-6 and 1e-6)."""
+    from encodermap_tpu import losses as JL
+
+    params = PAIR_SIGS[sig]
+    periodicity = 2 * np.pi if periodic else float("inf")
+    x, w, bias, dec = _pair_case(periodic, B, seed=B + 7 * periodic)
+    lat, loss_j, gw_j, gb_j, x0 = _jax_hand_step_sigmoid(x, w, bias, dec, params,
+                                                         periodicity)
+    loss_m, g_m = _cluster_pair_phase(x, lat, params, periodicity)
+    assert np.isfinite(g_m).all()
+    assert abs(loss_m - loss_j) <= 1e-5 * abs(loss_j), (loss_m, loss_j)
+    # [x0, 1]^T G: hand_step's gradients of the encoder's kernel and bias
+    a = np.concatenate([x0, np.ones((B, 1), np.float32)], axis=1).astype(np.float64)
+    got, want = a.T @ g_m, np.concatenate([gw_j, gb_j[None]])
+    assert (np.abs(got - want) <= 1e-5 * (np.abs(a).T @ np.abs(g_m))).all(), (got, want)
+    g_row = np.asarray(jax.grad(lambda l: JL.sigmoid_loss(
+        jnp.asarray(x), l, params, periodicity))(jnp.asarray(lat)))
+    assert np.abs(g_m - g_row).max() <= 1e-5 * np.abs(g_row).max()
+
+
+def _f64_pair_term(x, lat, params, periodicity):
+    """The sigmoid loss and its latent gradient in float64 from the same
+    float32 inputs: s = 1 - u^e as -expm1(e log1p(c t)), s'(r)/r = b c t
+    u^(e-1) / r^2."""
+    x, lat = x.astype(np.float64), lat.astype(np.float64)
+    d = np.abs(x[:, None, :] - x[None, :, :])
+    if math.isfinite(periodicity):
+        d = np.minimum(d, periodicity - d)
+    rh2, rl2 = (d * d).sum(-1), ((lat[:, None, :] - lat[None, :, :]) ** 2).sum(-1)
+
+    def side(r2, sig, a, b):
+        c, e = 2.0 ** (a / b) - 1.0, -b / a
+        t = (r2 / sig ** 2) ** (a / 2)
+        return -np.expm1(e * np.log1p(c * t)), b * c * t * (1 + c * t) ** (e - 1)
+
+    s_h = side(rh2, *params[:3])[0]
+    s_l, ds = side(rl2, *params[3:])
+    B = len(x)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        m = np.where(rl2 > 0, (s_l - s_h) * ds / rl2, 0.0)
+    g = (4.0 / (B * B)) * (m.sum(1)[:, None] * lat - m @ lat)
+    return float(np.mean((s_l - s_h) ** 2)), g
+
+
+def _near_u_1(rng, shape, sig, a, b):
+    """Uniform rows scaled so that every pair has c t <= 1e-3, t = (r/sig)^a
+    (well inside one period: the min-image distance is the difference)."""
+    v = rng.uniform(-1.0, 1.0, shape)
+    r_max = math.sqrt(((v[:, None] - v[None]) ** 2).sum(-1).max())
+    return (v * 0.999 * sig * (1e-3 / (2.0 ** (a / b) - 1.0)) ** (1 / a) / r_max
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("sig", ["defaults", "e=-1.5"])
+@pytest.mark.parametrize("periodic", [False, True], ids=["cube", "periodic"])
+def test_cluster_pair_phase_near_u_1_within_3x_of_jax_from_float64(periodic, sig):
+    """Where every pair has c t <= 1e-3 on both sides, s is small and the
+    JAX package's float32 1 - (1 + c t)^e keeps the rounding error of a
+    number near 1; the mirror's sums do not: its loss and latent gradient
+    are no further from a float64 evaluation than 3x the JAX package's own
+    float32 form (sigmoid_loss and its autodiff gradient) on the same
+    inputs (measured: 35-400x closer)."""
+    from encodermap_tpu import losses as JL
+
+    params = PAIR_SIGS[sig]
+    periodicity = 2 * np.pi if periodic else float("inf")
+    rng = np.random.default_rng(5 + periodic)
+    x = _near_u_1(rng, (32, 4 if periodic else 3), *params[:3])
+    lat = _near_u_1(rng, (32, 2), *params[3:])
+    loss64, g64 = _f64_pair_term(x, lat, params, periodicity)
+    loss_m, g_m = _cluster_pair_phase(x, lat, params, periodicity)
+    loss_j, g_j = jax.value_and_grad(lambda l: JL.sigmoid_loss(
+        jnp.asarray(x), l, params, periodicity))(jnp.asarray(lat))
+    err_m, err_j = abs(loss_m - loss64), abs(float(loss_j) - loss64)
+    assert err_m <= 3 * err_j, (err_m, err_j)
+    err_m, err_j = np.abs(g_m - g64).max(), np.abs(np.asarray(g_j) - g64).max()
+    assert err_m <= 3 * err_j, (err_m, err_j)
