@@ -24,10 +24,11 @@ reference's ``.keras`` checkpoints (``misc/keras_import.py``) and
 ``load_project`` (``kondata.py``). Slice 6b adds observability: TensorBoard
 event files written by the port itself (``tensorboard=True``; no
 TensorFlow needed), latent images (``add_images_to_tensorboard``), layer
-statistics, the model summary, ``torch.profiler`` traces
-(``misc/profiling.py``), ``function`` (``torch.compile`` with a plain debug
-form), and the host-side plotting, interactive selection and dashboard
-pages (``plot``; matplotlib, ipywidgets and dash imported only where used).
+statistics, the model summary, ``torch.profiler`` traces with the
+training path's spans and the kernel-launch counter (``misc/profiling.py``),
+``function`` (``torch.compile`` with a plain debug form), and the host-side
+plotting, interactive selection and dashboard pages (``plot``; matplotlib,
+ipywidgets and dash imported only where used).
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed::
 
@@ -48,8 +49,13 @@ Entry points run on the CUDA card unless ``device="cpu"`` is passed::
     ss = compute_dssp(trajs[0])            # (frames, residues) of H/E/C
 
     p = em.Parameters(tensorboard=True)    # events in main_path/train/
-    from encodermap_tpu_torch.misc.profiling import profile_steps
-    profile_steps(emap, n_steps=2, logdir="profile")   # *.pt.trace.json.gz
+    from encodermap_tpu_torch.misc import profiling
+    profiling.profile_steps(emap, n_steps=2, logdir="profile")  # *.pt.trace.json.gz
+    with profiling.trace("profile"):       # the program's spans (off by default)
+        emap.train()                       # on in the trace: open it in ui.perfetto.dev
+    with profiling.record_spans():         # spans without the profiler
+        emap.train()
+    profiling.span_totals()["train.fetch"] # (count, total_s, self_s) so far
 
     trajs.save("ens.h5")                   # out of core (needs h5py)
     adc = em.AngleDihedralCartesianEncoderMap.from_ensemble_h5("ens.h5", em.ADCParameters())

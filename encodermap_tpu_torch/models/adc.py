@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..misc.profiling import span
 from ..nn import ACTIVATIONS, dense_apply, dense_init, l2_sum, mlp_apply, mlp_init
 from ..ops.backmap import backmap as backmap_op
 from ..ops.backmap import backmap_multimer
@@ -331,20 +332,23 @@ def forward(params: dict, p: ADCParameters, inputs: tuple, shapes: ADCShapes,
          back_cartesians, inp_pairwise or None, out_pairwise or None, latent)
     """
     angles, _, cartesians, distances = inputs[:4]
-    latent = encode(params, p, inputs)
-    decoded = decode(params, p, latent, shapes)
-    out_angles, out_dihedrals, out_side = decoded[:3]
-    if not p.use_backbone_angles:
-        # MeanAngles (layers.py:1152-1160), over the global batch
-        rows = gather(angles) if gather is not None else angles
-        out_angles = torch.mean(rows, dim=0, keepdim=True).expand(angles.shape)
-    if p.multimer_training is not None:
-        # each protein rebuilt on its own, proteins 2..N placed by the
-        # decoded transforms (models.py:946-953)
-        back = backmap_multimer(multimer_lengths_list(p), distances, out_angles,
-                                out_dihedrals, decoded[3], gather)
-    else:
-        back = backmap_op(distances, out_angles, out_dihedrals, gather)
+    with span("adc.encode"):
+        latent = encode(params, p, inputs)
+    with span("adc.decode"):
+        decoded = decode(params, p, latent, shapes)
+        out_angles, out_dihedrals, out_side = decoded[:3]
+        if not p.use_backbone_angles:
+            # MeanAngles (layers.py:1152-1160), over the global batch
+            rows = gather(angles) if gather is not None else angles
+            out_angles = torch.mean(rows, dim=0, keepdim=True).expand(angles.shape)
+    with span("adc.backmap"):
+        if p.multimer_training is not None:
+            # each protein rebuilt on its own, proteins 2..N placed by the
+            # decoded transforms (models.py:946-953)
+            back = backmap_multimer(multimer_lengths_list(p), distances, out_angles,
+                                    out_dihedrals, decoded[3], gather)
+        else:
+            back = backmap_op(distances, out_angles, out_dihedrals, gather)
     inp_pair = out_pair = None
     if with_pairs:
         inp_pair = cartesian_pwd_slice(p, cartesians)
@@ -452,10 +456,13 @@ def forward_sidechains(params: dict, p: ADCParameters, inputs: tuple,
          out_pair or None, latent)
     """
     all_cartesians, central_distances, side_distances = inputs[2], inputs[3], inputs[6]
-    latent = encode_sidechains(params, p, inputs)
-    out_ca, out_cdi, out_sa, out_sdi = decode_sidechains(params, p, latent, shapes)
-    back = backmap_sidechains_fast(spec, central_distances, out_ca, out_cdi,
-                                   side_distances, out_sa, out_sdi)
+    with span("adc.encode"):
+        latent = encode_sidechains(params, p, inputs)
+    with span("adc.decode"):
+        out_ca, out_cdi, out_sa, out_sdi = decode_sidechains(params, p, latent, shapes)
+    with span("adc.backmap"):
+        back = backmap_sidechains_fast(spec, central_distances, out_ca, out_cdi,
+                                       side_distances, out_sa, out_sdi)
     inp_pair = out_pair = None
     if with_pairs:
         idx = torch.as_tensor(sidechain_pwd_indices(p, spec), device=back.device)

@@ -13,12 +13,12 @@ module of the port, and this machine may have no ``nvcc``.
 
 :data:`launch_counts` counts kernel launches by kernel name. Each wrapper
 adds one where it launches its kernel and nowhere else, so a run can show
-which kernels its path went through.
+which kernels its path went through. It is the ``launches`` counter of
+``misc/profiling.py``'s registry.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -28,6 +28,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..misc.profiling import launches as launch_counts
 
 __all__ = ["CSRC", "build_all", "register", "load_library", "launch_counts",
            "check_cuda", "stream_ptr"]
@@ -39,8 +41,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: library name -> its C entry points: (name, argument types[, result type])
 _ENTRY_POINTS: dict[str, list[tuple]] = {}
-
-launch_counts: collections.Counter = collections.Counter()
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from ..misc.profiling import span
 from . import _build
 from .distances import dsig_over_r, pairwise_dist, sig_value
 
@@ -571,24 +572,26 @@ def make_fused_trainer(p, steps_per_scan: int, batch_size: int):
     hyper = hyper_from(p)
 
     def chunk(state, data, idx: Optional[torch.Tensor] = None):
-        if idx is None:
-            idx, rng = draw_indices(state.rng, data.shape[0],
-                                    (steps_per_scan, batch_size), data.device)
-        else:
-            rng = state.rng
-        flat, n_enc = split_params(state.params)
-        n_dec = len(state.params["decoder"])
-        opt = state.opt_state
-        new_flat, new_mu, new_nu, metrics = fused_chunk(
-            flat, split_params(opt["mu"])[0], split_params(opt["nu"])[0],
-            float(opt["count"]), data, idx, n_enc=n_enc, hyper=hyper)
-        steps = idx.shape[0]
-        new_opt = {"count": opt["count"] + steps,
-                   "mu": join_params(new_mu, n_enc, n_dec),
-                   "nu": join_params(new_nu, n_enc, n_dec)}
-        new_state = state.replace(params=join_params(new_flat, n_enc, n_dec),
-                                  opt_state=new_opt, rng=rng,
-                                  step=state.step + steps)
-        return new_state, {k: metrics[:, i] for i, k in enumerate(METRIC_NAMES)}
+        with span("trainer.draw", state.step):
+            if idx is None:
+                idx, rng = draw_indices(state.rng, data.shape[0],
+                                        (steps_per_scan, batch_size), data.device)
+            else:
+                rng = state.rng
+        with span("trainer.launch", state.step):
+            flat, n_enc = split_params(state.params)
+            n_dec = len(state.params["decoder"])
+            opt = state.opt_state
+            new_flat, new_mu, new_nu, metrics = fused_chunk(
+                flat, split_params(opt["mu"])[0], split_params(opt["nu"])[0],
+                float(opt["count"]), data, idx, n_enc=n_enc, hyper=hyper)
+            steps = idx.shape[0]
+            new_opt = {"count": opt["count"] + steps,
+                       "mu": join_params(new_mu, n_enc, n_dec),
+                       "nu": join_params(new_nu, n_enc, n_dec)}
+            new_state = state.replace(params=join_params(new_flat, n_enc, n_dec),
+                                      opt_state=new_opt, rng=rng,
+                                      step=state.step + steps)
+            return new_state, {k: metrics[:, i] for i, k in enumerate(METRIC_NAMES)}
 
     return chunk

@@ -56,6 +56,7 @@ import torch
 
 from .. import losses as L
 from ..models import adc
+from ..misc.profiling import span
 from ..ops.backmap import backmap as backmap_op
 from ..ops.backmap import backmap_multimer
 from ..ops.backmap_sidechains import backmap_sidechains_fast, make_spec
@@ -230,36 +231,37 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         gather = (lambda x: self._gather_rows(x)[0]) if self._dp is not None else None
         out_angles, out_dihedrals, out_side, back, _, _, latent = adc.forward(
             params, p, batch, self.shapes, with_pairs=False, gather=gather)
-        # the losses see the global batch
-        (inp_angles, inp_dihedrals, inp_cartesians, out_angles, out_dihedrals, back,
-         latent, inp_side, out_side) = self._gather_some(
-            *batch[:3], out_angles, out_dihedrals, back, latent, inp_side, out_side)
+        with span("adc.losses"):
+            # the losses see the global batch
+            (inp_angles, inp_dihedrals, inp_cartesians, out_angles, out_dihedrals, back,
+             latent, inp_side, out_side) = self._gather_some(
+                *batch[:3], out_angles, out_dihedrals, back, latent, inp_side, out_side)
 
-        # the distance and center costs see the raw trained groups
-        # (loss_functions.py:279-281)
-        groups = [inp_angles, inp_dihedrals] if p.use_backbone_angles \
-            else [inp_dihedrals]
-        if p.use_sidechains:
-            groups.append(inp_side)
-        enc_inp = torch.cat(groups, dim=1) if len(groups) > 1 else groups[0]
+            # the distance and center costs see the raw trained groups
+            # (loss_functions.py:279-281)
+            groups = [inp_angles, inp_dihedrals] if p.use_backbone_angles \
+                else [inp_dihedrals]
+            if p.use_sidechains:
+                groups.append(inp_side)
+            enc_inp = torch.cat(groups, dim=1) if len(groups) > 1 else groups[0]
 
-        scale = L.soft_start_scale(p, step, device=latent.device)
-        cart_loss, cdist_loss = self._cartesian_terms(
-            adc._ca_slice(p, inp_cartesians), adc._ca_slice(p, back), latent, scale)
-        terms = {
-            "dihedral_loss": L.dihedral_loss(inp_dihedrals, out_dihedrals, p),
-            "angle_loss": L.angle_loss(inp_angles, out_angles, p),
-            "cartesian_loss": cart_loss,
-            "distance_loss": L.distance_loss(enc_inp, latent, p),
-            "cartesian_distance_loss": cdist_loss,
-            "center_loss": L.center_loss(latent, p),
-            "regularization_loss": L.regularization_loss(
-                adc.regularization_sum(params), p),
-        }
-        if p.use_sidechains:
-            terms["side_dihedral_loss"] = L.side_dihedral_loss(inp_side,
-                                                               out_side, p)
-        terms["cartesian_cost_scale"] = scale
+            scale = L.soft_start_scale(p, step, device=latent.device)
+            cart_loss, cdist_loss = self._cartesian_terms(
+                adc._ca_slice(p, inp_cartesians), adc._ca_slice(p, back), latent, scale)
+            terms = {
+                "dihedral_loss": L.dihedral_loss(inp_dihedrals, out_dihedrals, p),
+                "angle_loss": L.angle_loss(inp_angles, out_angles, p),
+                "cartesian_loss": cart_loss,
+                "distance_loss": L.distance_loss(enc_inp, latent, p),
+                "cartesian_distance_loss": cdist_loss,
+                "center_loss": L.center_loss(latent, p),
+                "regularization_loss": L.regularization_loss(
+                    adc.regularization_sum(params), p),
+            }
+            if p.use_sidechains:
+                terms["side_dihedral_loss"] = L.side_dihedral_loss(inp_side,
+                                                                   out_side, p)
+            terms["cartesian_cost_scale"] = scale
         return terms, (back, inp_cartesians)
 
     def _cartesian_terms(self, inp_sel: torch.Tensor, out_sel: torch.Tensor,
@@ -290,27 +292,28 @@ class AngleDihedralCartesianEncoderMap(Autoencoder):
         p = self.p
         out_ca, out_cdi, out_sa, out_sdi, back, _, _, latent = adc.forward_sidechains(
             params, p, batch, self.shapes, self.sidechain_spec, with_pairs=False)
-        # the losses see the global batch
-        (inp_ca, inp_cdi, inp_all_cart, inp_sa, inp_sdi, out_ca, out_cdi, out_sa,
-         out_sdi, back, latent) = self._gather_some(
-            *batch[:3], *batch[4:6], out_ca, out_cdi, out_sa, out_sdi, back, latent)
-        enc_inp = torch.cat([inp_ca, inp_cdi, inp_sa, inp_sdi], dim=1)
-        scale = L.soft_start_scale(p, step, device=latent.device)
-        idx = torch.as_tensor(adc.sidechain_pwd_indices(p, self.sidechain_spec),
-                              device=latent.device)
-        cart_loss, cdist_loss = self._cartesian_terms(inp_all_cart[:, idx], back[:, idx],
-                                                      latent, scale)
-        terms = {
-            "dihedral_loss": L.dihedral_loss(inp_cdi, out_cdi, p),
-            "angle_loss": L.angle_loss(inp_ca, out_ca, p) + L.angle_loss(inp_sa, out_sa, p),
-            "side_dihedral_loss": L.side_dihedral_loss(inp_sdi, out_sdi, p),
-            "cartesian_loss": cart_loss,
-            "distance_loss": L.distance_loss(enc_inp, latent, p),
-            "cartesian_distance_loss": cdist_loss,
-            "center_loss": L.center_loss(latent, p),
-            "regularization_loss": L.regularization_loss(adc.regularization_sum(params), p),
-            "cartesian_cost_scale": scale,
-        }
+        with span("adc.losses"):
+            # the losses see the global batch
+            (inp_ca, inp_cdi, inp_all_cart, inp_sa, inp_sdi, out_ca, out_cdi, out_sa,
+             out_sdi, back, latent) = self._gather_some(
+                *batch[:3], *batch[4:6], out_ca, out_cdi, out_sa, out_sdi, back, latent)
+            enc_inp = torch.cat([inp_ca, inp_cdi, inp_sa, inp_sdi], dim=1)
+            scale = L.soft_start_scale(p, step, device=latent.device)
+            idx = torch.as_tensor(adc.sidechain_pwd_indices(p, self.sidechain_spec),
+                                  device=latent.device)
+            cart_loss, cdist_loss = self._cartesian_terms(inp_all_cart[:, idx], back[:, idx],
+                                                          latent, scale)
+            terms = {
+                "dihedral_loss": L.dihedral_loss(inp_cdi, out_cdi, p),
+                "angle_loss": L.angle_loss(inp_ca, out_ca, p) + L.angle_loss(inp_sa, out_sa, p),
+                "side_dihedral_loss": L.side_dihedral_loss(inp_sdi, out_sdi, p),
+                "cartesian_loss": cart_loss,
+                "distance_loss": L.distance_loss(enc_inp, latent, p),
+                "cartesian_distance_loss": cdist_loss,
+                "center_loss": L.center_loss(latent, p),
+                "regularization_loss": L.regularization_loss(adc.regularization_sum(params), p),
+                "cartesian_cost_scale": scale,
+            }
         return terms, (back, inp_all_cart)
 
     def _gather_some(self, *xs: Optional[torch.Tensor]) -> tuple:

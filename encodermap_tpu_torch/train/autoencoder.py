@@ -65,6 +65,7 @@ import torch
 from .. import losses as L
 from ..device import resolve_device
 from ..misc.misc import create_n_cube
+from ..misc.profiling import span, spans_enabled
 from ..misc.saving import (
     load_checkpoint,
     load_checkpoint_rng,
@@ -514,21 +515,23 @@ class Autoencoder:
             leaves = [t.detach().requires_grad_(True)
                       for t in tree_leaves(state.params)]
             params = tree_unflatten(state.params, leaves)
-            terms, aux = self._loss_and_aux(params, batch, state.step)
-            if self.custom_losses or self.custom_metrics:
-                batch = self._global_batch(batch)
-            terms.update({name: fn(params, batch)
-                          for name, fn in self.custom_losses})
-            loss = torch.zeros((), dtype=torch.float32, device=self.device)
-            for k, v in terms.items():
-                if k not in self._metrics_only:
-                    loss = loss + v
+            with span("step.forward"):
+                terms, aux = self._loss_and_aux(params, batch, state.step)
+                if self.custom_losses or self.custom_metrics:
+                    batch = self._global_batch(batch)
+                terms.update({name: fn(params, batch)
+                              for name, fn in self.custom_losses})
+                loss = torch.zeros((), dtype=torch.float32, device=self.device)
+                for k, v in terms.items():
+                    if k not in self._metrics_only:
+                        loss = loss + v
             # a leaf outside the graph (a frozen densifier) gets a zero
             # gradient, as JAX gives it
-            grads = self._reduce_grads(
-                [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(leaves, torch.autograd.grad(
-                     loss, leaves, allow_unused=True))])
+            with span("step.backward"):
+                grads = self._reduce_grads(
+                    [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, torch.autograd.grad(
+                         loss, leaves, allow_unused=True))])
             metrics = {k: v.detach() for k, v in terms.items()}
             metrics["loss"] = loss.detach()
             if self._lr_schedule is not None:
@@ -536,12 +539,14 @@ class Autoencoder:
                     self.optimizer.lr_at(state.opt_state["count"]),
                     dtype=torch.float32, device=self.device)
             with torch.no_grad():
-                new_params, opt_state = self.optimizer.update(
-                    tree_unflatten(state.params, grads),
-                    state.opt_state, state.params)
-                metrics.update(self._aux_metric_terms(aux, batch))
-                metrics.update({name: fn(new_params, batch).detach()
-                                for name, fn in self.custom_metrics})
+                with span("step.optimizer"):
+                    new_params, opt_state = self.optimizer.update(
+                        tree_unflatten(state.params, grads),
+                        state.opt_state, state.params)
+                with span("step.metrics"):
+                    metrics.update(self._aux_metric_terms(aux, batch))
+                    metrics.update({name: fn(new_params, batch).detach()
+                                    for name, fn in self.custom_metrics})
             return (state.replace(params=new_params, opt_state=opt_state,
                                   step=state.step + 1), metrics)
 
@@ -661,9 +666,13 @@ class Autoencoder:
             return self.history
 
         sps = max(1, min(self.p.steps_per_scan, self.p.n_steps))
-        data = self._device_data()
+        with span("train.upload"):
+            data = self._device_data()
         n_rows = (data[0] if isinstance(data, tuple) else data).shape[0]
         cbs = self._setup_callbacks()
+        # the callbacks' span names, made only where spans record
+        cb_spans = ([f"train.callback.{type(cb).__name__}" for cb in cbs]
+                    if spans_enabled() else [None] * len(cbs))
         if not self.read_only:
             self.close()
             self._metrics_writer = MetricsWriter(
@@ -688,21 +697,26 @@ class Autoencoder:
                         f"[{idx.min()}, {idx.max()}]; this chunk needs "
                         f"{chunk} rows in [0, {n_rows})")
                 idx = torch.from_numpy(idx).to(self.device)
-            self.state, metrics = self._get_trainer(chunk)(self.state, data,
-                                                           idx)
-            metrics = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+            with span("train.chunk", first_step):
+                self.state, metrics = self._get_trainer(chunk)(self.state, data,
+                                                               idx)
+            with span("train.fetch", first_step):
+                metrics = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
             n = len(next(iter(metrics.values())))
-            for k, v in metrics.items():
-                history.setdefault(k, []).append(v)
-            if self._metrics_writer is not None:
-                stride = max(1, self.p.summary_step)
-                for i in range(n):
-                    step_i = first_step + i + 1
-                    if step_i % stride == 0:
-                        self._metrics_writer.write_scalars(
-                            step_i, {k: v[i] for k, v in metrics.items()})
-            for cb in cbs:
-                if cb.on_chunk_end(first_step, metrics) is False:
+            with span("train.log", first_step):
+                for k, v in metrics.items():
+                    history.setdefault(k, []).append(v)
+                if self._metrics_writer is not None:
+                    stride = max(1, self.p.summary_step)
+                    for i in range(n):
+                        step_i = first_step + i + 1
+                        if step_i % stride == 0:
+                            self._metrics_writer.write_scalars(
+                                step_i, {k: v[i] for k, v in metrics.items()})
+            for cb, name in zip(cbs, cb_spans):
+                with span(name, first_step):
+                    stopped = cb.on_chunk_end(first_step, metrics) is False
+                if stopped:
                     stop = True
                     nan_stop = isinstance(cb, NaNInterrupt)
                     break
@@ -711,7 +725,8 @@ class Autoencoder:
         for cb in cbs:
             cb.on_train_end(self)
         self.history = {k: np.concatenate(v) for k, v in history.items()}
-        self._persist(nan_stop)
+        with span("train.persist"):
+            self._persist(nan_stop)
         self.close()
         self._metrics_writer = None
         return self.history

@@ -38,6 +38,7 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
+from ..misc.profiling import span
 from ..nn import TPLayer
 
 __all__ = [
@@ -238,7 +239,8 @@ def make_scan_trainer(
             own = shard_rows(first.shape[0], shard)
             local = tuple(d[own] for d in data) if isinstance(data, tuple) else data[own]
             for _ in range(steps_per_scan):
-                state, metrics = train_step(state, local)
+                with span("trainer.step", state.step):
+                    state, metrics = train_step(state, local)
                 rows.append(metrics)
         else:
             first = data[0] if isinstance(data, tuple) else data
@@ -249,9 +251,10 @@ def make_scan_trainer(
                 state = state.replace(rng=rng)
             idx = idx.to(first.device)[:, shard_rows(idx.shape[1], shard)]
             for s in range(idx.shape[0]):
-                batch = (tuple(d[idx[s]] for d in data)
-                         if isinstance(data, tuple) else data[idx[s]])
-                state, metrics = train_step(state, batch)
+                with span("trainer.step", state.step):
+                    batch = (tuple(d[idx[s]] for d in data)
+                             if isinstance(data, tuple) else data[idx[s]])
+                    state, metrics = train_step(state, batch)
                 rows.append(metrics)
         return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
