@@ -40,8 +40,10 @@ config 1 for 100 steps and one trp-cage ADC step, and holds both to the
 same steps on one device. ``phase_adc`` also holds the trained ADC's step
 gradients to the float64 oracle ``ops/adc_adjoint.py::hand_adc_step`` on
 the card (the kernels within 3x of the plain version's distance from
-it). The observability leg trains config 1 with
-TensorBoard events, the model summary and a latent-histogram image written
+it), and holds the backmap's one-way kernels against their plain versions
+at trp-cage's two halves and at 236 bonds, B=256 (``hold_one_way``); every
+ADC leg checks how often they launch. The observability leg trains config
+1 with TensorBoard events, the model summary and a latent-histogram image written
 by a callback, reads the event file back (CRCs, tags, steps, float32
 values equal to the JSONL rows), trains the ADC with TensorBoard on,
 profiles two chunks (the cluster kernel named in the trace), and times
@@ -1426,10 +1428,107 @@ def adc_oracle_check(emap, batch: tuple, step: int, tag: str) -> dict:
     return dict(errs=errs, lat=(lat_k, lat_p), loss_rel=loss_rel)
 
 
-def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int) -> tuple:
+def one_way_bytes(B: int, n: int, itemsize: int = 4) -> tuple[int, int]:
+    """Bytes the one-way function reads and writes at least, forward and
+    backward: dihedrals and coordinates in, coordinates out; dihedrals,
+    coordinates and the output's cotangent in, both cotangents out. What
+    the kernels keep between the two (``C_0..C_{n-1}``) is the design's
+    choice, not the function's, and is left out."""
+    atoms = 3 * (n + 3)
+    return B * (n + 2 * atoms) * itemsize, B * (2 * n + 3 * atoms) * itemsize
+
+
+def hold_one_way(B: int = 256, ns: tuple = (28, 29, 236), reps: int = 200) -> dict:
+    """The backmap's one-way kernels (``csrc/backmap_one_way.cu``) against
+    their plain versions on the same card tensors, float32, at B=256 and n
+    = 28, 29 (trp-cage's two halves, the ADC step's shapes) and 236 (eight
+    32-bond tiles, every carry). Up to 32 bonds, where the kernels'
+    warp scan associates as the plain version's doubling rounds, the output
+    and both cotangents agree to 1e-5 of each tensor's largest entry. At
+    every n the port's rule for kernels holds: err(kernels, f64) <= 3
+    err(plain f32, f64), largest absolute error per tensor, against the
+    plain version in float64 on the card (past 32 bonds the scans and the
+    suffix sums associate otherwise, and both float32 sides drift from
+    float64 along the chain). Two launches give the same bits. Times
+    each kernel and the plain version's forward and backward on the card
+    alone (``scripts/sigmoid_time.py::device_ms``: a CUDA graph of many
+    calls, so the host's time between launches does not count), and
+    forward and backward with the host (``time_ms``); the bound is
+    ``one_way_bytes`` at 3.35 TB/s (the FLOPs, a few hundred a bond, take
+    less). Returns, by n, the forward's and the backward's (abs err, ms,
+    plain ms, bound)."""
+    from encodermap_tpu_torch.ops.backmap import (
+        _one_way_bwd,
+        _one_way_bwd_plain,
+        _one_way_fwd,
+        _one_way_fwd_plain,
+        chain_in_plane,
+    )
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from sigmoid_time import device_ms
+
+    out = {}
+    for n in ns:
+        rng = np.random.default_rng(n)
+        chain = chain_in_plane(torch.tensor(rng.uniform(0.13, 0.155, (B, n + 2))),
+                               torch.tensor(rng.uniform(1.6, 2.4, (B, n + 1))))
+        chain = chain + torch.tensor(rng.normal(0, 0.01, (B, n + 3, 3)))
+        dih = torch.tensor(rng.uniform(-np.pi, np.pi, (B, n)))
+        g = torch.tensor(rng.normal(size=(B, n + 3, 3)))
+        dih, chain, g = (t.to("cuda", torch.float32) for t in (dih, chain, g))
+
+        def kernels():
+            y, saved = _one_way_fwd(dih, chain)
+            return [y, *_one_way_bwd(saved, g)]
+
+        def plain():
+            y, saved = _one_way_fwd_plain(dih, chain)
+            return [y, *_one_way_bwd_plain(saved, g)]
+
+        got, again, want = kernels(), kernels(), plain()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        abs_err = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        rel = [e / float(b.abs().max()) for e, b in zip(abs_err, want)]
+        y64, saved64 = _one_way_fwd_plain(dih.double(), chain.double())
+        want64 = [y64, *_one_way_bwd_plain(saved64, g.double())]
+        f64 = [(float((a.double() - c).abs().max()), float((b.double() - c).abs().max()))
+               for a, b, c in zip(got, want, want64)]
+        _, saved_k = _one_way_fwd(dih, chain)
+        _, saved_p = _one_way_fwd_plain(dih, chain)
+        ms = (device_ms(torch, lambda: _one_way_fwd(dih, chain), reps),
+              device_ms(torch, lambda: _one_way_bwd(saved_k, g), reps))
+        ms_p = (device_ms(torch, lambda: _one_way_fwd_plain(dih, chain), 20),
+                device_ms(torch, lambda: _one_way_bwd_plain(saved_p, g), 20))
+        host = time_ms(kernels, reps), time_ms(plain, 20)
+        bound = [(1e3 * b / PEAK_BYTES_PER_S, "bytes") for b in one_way_bytes(B, n)]
+        label = f"one-way B={B} n={n}"
+        log(f"[{label}] kernels against plain float32 (max abs, rel to max): output "
+            f"{abs_err[0]:.2e} ({rel[0]:.2e}), dihedral cotangent {abs_err[1]:.2e} "
+            f"({rel[1]:.2e}), coordinate cotangent {abs_err[2]:.2e} ({rel[2]:.2e}); two "
+            f"launches bit-identical {same} | card alone: fwd {1e3 * ms[0]:.2f} us, bwd "
+            f"{1e3 * ms[1]:.2f} us (plain {1e3 * ms_p[0]:.1f} / {1e3 * ms_p[1]:.1f} us; bound "
+            f"{1e3 * bound[0][0]:.3f} / {1e3 * bound[1][0]:.3f} us, bytes); fwd + bwd with "
+            f"the host {1e3 * host[0]:.1f} us (plain {1e3 * host[1]:.1f} us)")
+        log(f"[{label}] from the plain version in float64 (max abs, kernels / plain float32): "
+            + ", ".join(f"{k:.2e} / {q:.2e}" for k, q in f64))
+        if n <= 32:
+            check(max(rel) <= 1e-5, f"{label}: the kernels part from the plain version by {rel}")
+        check(all(k <= 3 * q for k, q in f64),
+              f"{label}: the kernels part from float64 more than 3x the plain version: {f64}")
+        check(same, f"{label}: two launches differ")
+        out[n] = dict(fwd=(abs_err[0], ms[0], ms_p[0], bound[0]),
+                      bwd=(max(abs_err[1:]), ms[1], ms_p[1], bound[1]), host=host)
+    return out
+
+
+def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int, one_way: int = 2) -> tuple:
     """``train()`` with the launch counts set to 0 just before and read just
     after: the sigmoid kernels must launch ``per_step`` times a step each,
-    the fused train kernels never. Returns (emap, history, counts, s)."""
+    the one-way kernels ``one_way`` times a step each (a chain's two
+    halves, for each protein of a multimer; none where the sidechain
+    backmap builds the chain), the fused train kernels never. Returns
+    (emap, history, counts, s)."""
     emap = em.AngleDihedralCartesianEncoderMap(cvs, p)
     torch.cuda.synchronize()
     _build.launch_counts.clear()
@@ -1441,6 +1540,9 @@ def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int) -> tuple:
     want = per_step * p.n_steps
     check(counts.get("sigmoid_fwd", 0) == want and counts.get("sigmoid_bwd", 0) == want,
           f"{tag}: sigmoid kernels launched {counts}, expected {want} each")
+    want = one_way * p.n_steps
+    check(counts.get("one_way_fwd", 0) == want and counts.get("one_way_bwd", 0) == want,
+          f"{tag}: one-way kernels launched {counts}, expected {want} each")
     check(counts.get("fused_train", 0) == 0 and counts.get("fused_train_cluster", 0) == 0,
           f"{tag}: a fused train kernel ran")
     check(bool(np.isfinite(hist["loss"]).all()), f"{tag}: non-finite loss")
@@ -1500,6 +1602,7 @@ def phase_adc(em, fs, _build, run_dir: Path) -> dict:
     rows = np.random.default_rng(1).integers(0, 4096, 256)
     inputs = adc_kernel_inputs(emap, cvs, rows)
     kern = adc_kernel_check(fs, inputs, "adc", reps=20)
+    one_way = hold_one_way()
     b = [torch.tensor(cvs[k][rows], device="cuda") for k in CV_KEYS]
     oracle = adc_oracle_check(emap, tuple(b), emap.state.step, "adc")
     ang = b[0].clone().requires_grad_(True)
@@ -1521,7 +1624,8 @@ def phase_adc(em, fs, _build, run_dir: Path) -> dict:
         f"ms; dense Cartesian cost fwd+bwd {ms_dense:.4f} ms; sigmoid kernels fwd+bwd "
         + ", ".join(f"D={D} {t:.4f} ms" for D, t in sig.items())
         + f"; step {ms:.3f} ms, device busy {busy:.3f} ms")
-    return dict(counts=counts, kernels=kern, ms=ms, wall=wall, oracle=oracle)
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall, oracle=oracle,
+                one_way=one_way)
 
 
 def phase_adc_matrix(em, fs, _build, run_dir: Path) -> dict:
@@ -1702,7 +1806,7 @@ def phase_adc_sidechains(em, fs, _build, run_dir: Path) -> dict:
     cvs = sidechain_cvs(4096, seed=3)
     p = adc_params(em, run_dir, 100, 50, reconstruct_sidechains=True,
                    sidechain_info=TRP_CAGE_SIDECHAIN_INFO)
-    emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2)
+    emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2, one_way=0)
     spec = emap.sidechain_spec
     check(spec.n_atoms == 114 and spec.n_sidechain_atoms == 54,
           f"{tag}: the spec has {spec.n_atoms} atoms")
@@ -1780,7 +1884,7 @@ def phase_adc_multimer(em, fs, _build, run_dir: Path) -> dict:
     cvs = dimer_cvs(4096, seed=4)
     p = adc_params(em, run_dir, 100, 50, multimer_training="homogeneous_transformation",
                    multimer_lengths=[20, 20])
-    emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2)
+    emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2, one_way=4)
     first, last = hist["loss"][:10].mean(), hist["loss"][-10:].mean()
     log(f"[{tag}] mean loss of the first 10 steps {first:.4f}, of the last 10 {last:.4f}")
     check(last < first, f"{tag}: the loss did not fall")
@@ -2196,7 +2300,8 @@ def phase_analysis(em, fs, _build, run_dir: Path, feat: dict) -> dict:
     trp = em.load([str(run_dir / "trp_0.dcd"), str(run_dir / "trp_1.trr")], sc_pdb)
     trp.load_CVs("full", ensemble=True)
     p = adc_params(em, run_dir / "sc", 50, 50, reconstruct_sidechains=True)
-    emap, hist, counts, wall = adc_train(em, _build, trp, p, f"{tag} sidechains", 2)
+    emap, hist, counts, wall = adc_train(em, _build, trp, p, f"{tag} sidechains", 2,
+                                         one_way=0)
     check(p.sidechain_info == sc_top.sidechain_info(),
           f"{tag}: sidechain_info {p.sidechain_info} is not the topology's")
     z = emap.encode()[:8]
@@ -3242,6 +3347,18 @@ def main() -> int:
             replaces=f"encodermap_tpu/ops/pallas_sigmoid.py:{line}",
             launches=general[count] + gen_f64[count]
             + sum(leg["counts"][count] for leg in adc_legs),
+            max_abs_err=err, ms=ms, plain_ms=ms_p,
+            bound_ms=b[0], bound_by=b[1], library_ms=None))
+    # the one-way kernels at trp-cage's longer half, the ADC step's shape
+    one_way = adc_legs[0]["one_way"][29]
+    for name, key, count in (("one_way_fwd", "fwd", "one_way_fwd"),
+                             ("one_way_bwd", "bwd", "one_way_bwd")):
+        err, ms, ms_p, b = one_way[key]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="encodermap_tpu_torch/csrc/backmap_one_way.cu",
+            replaces="none: encodermap_tpu/ops/backmap.py:353 _one_way, plain jnp",
+            launches=sum(leg["counts"].get(count, 0) for leg in adc_legs),
             max_abs_err=err, ms=ms, plain_ms=ms_p,
             bound_ms=b[0], bound_by=b[1], library_ms=None))
     print(json.dumps({"kernels": kernels}))

@@ -15,11 +15,14 @@ Counterpart of the training and generation part of
   only are composed: an affine scan cancels badly on long chains.
 * ``_one_way`` is a :class:`torch.autograd.Function` whose backward is the
   hand-derived adjoint of the JAX package's ``_one_way_bwd``: suffix sums
-  give the bond, torsion and axis pullbacks.
+  give the bond, torsion and axis pullbacks. On the card it launches one
+  kernel each way (``csrc/backmap_one_way.cu``); CPU tensors run the plain
+  versions :func:`_one_way_fwd_plain` and :func:`_one_way_bwd_plain`.
 
-The cumulative product has no ``associative_scan`` in PyTorch; it runs as
-``ceil(log2 n)`` doubling rounds over the whole chain, keeping the JAX
-package's operand order (the earlier product on the left). The JAX
+In the plain version the cumulative product, which has no
+``associative_scan`` in PyTorch, runs as ``ceil(log2 n)`` doubling rounds
+over the whole chain, keeping the JAX package's operand order (the earlier
+product on the left). The JAX
 package's TPU-only layouts (the MXU suffix sums, stacked against
 per-component planes, both halves in one padded call) are not ported: the
 port takes the forms the JAX package takes on the CPU. Quaternions are
@@ -35,6 +38,8 @@ port takes the forms the JAX package takes on the CPU. Quaternions are
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from math import pi
 from typing import Callable, Optional, Sequence
 
@@ -56,6 +61,8 @@ __all__ = [
     "guess_amide_O",
     "merge_cartesians",
 ]
+
+_LIB = "backmap_one_way"
 
 
 def _signs(pattern_even: float, start: int, stop: int, like: torch.Tensor
@@ -134,6 +141,151 @@ def _suffix_sums(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(torch.cumsum(torch.flip(x, (-1,)), dim=-1), (-1,))
 
 
+def _one_way_fwd_plain(dihedrals: torch.Tensor, cartesian: torch.Tensor
+                      ) -> tuple[torch.Tensor, tuple]:
+    """Plain version of the forward kernel: the curled ``(B, n + 3, 3)``
+    coordinates of one half-chain, and the tensors
+    :func:`_one_way_bwd_plain` takes."""
+    c = cartesian.permute(2, 0, 1)                  # (3, B, n + 3)
+    u = c[:, :, 2:-1] - c[:, :, 1:-2]               # axes, (3, B, n)
+    ulen = torch.sqrt((u * u).sum(0))
+    a = u / ulen
+    # the reference's x @ R_rodrigues(axis, -d) is a column rotation by
+    # +d: q = (cos(d/2), sin(d/2) a)
+    half = 0.5 * dihedrals
+    q = torch.cat([torch.cos(half)[None], torch.sin(half)[None] * a], 0)
+    q_scan = _cumulative_quats(q)
+    # the last atom shares C_{n-1} with the one before it
+    q_cum = torch.cat([q_scan, q_scan[..., -1:]], dim=-1)
+    r = _quat_rotate(q_cum, c[:, :, 2:] - c[:, :, 1:-1])  # (3, B, n + 1)
+    moved = c[:, :, 1:2] + torch.cumsum(r, dim=-1)
+    out = torch.cat([c[:, :, :2], moved], -1).permute(1, 2, 0).contiguous()
+    return out, (dihedrals, q_scan, q_cum, r, a, ulen)
+
+
+def _one_way_bwd_plain(saved: tuple, grad: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel: the cotangents of the
+    dihedrals and the planar coordinates, from what
+    :func:`_one_way_fwd_plain` saved and the output's cotangent ``grad``."""
+    dihedrals, q_scan, q_cum, r, a, ulen = saved
+    B, n = dihedrals.shape
+    g = grad.permute(2, 0, 1)                       # (3, B, n + 3)
+    G = _suffix_sums(g[:, :, 2:])                   # (3, B, n + 1)
+    b_bar = _quat_rotate(_quat_conj(q_cum), G)
+    # torsion and moment sums; bond m sits at index m - 2, so
+    # "m >= i + 2" starts at index i
+    sums = _suffix_sums(torch.cat(
+        [torch.linalg.cross(r, G, dim=0),
+         (r[:, None] * G[None]).reshape(9, B, n + 1)], dim=0))
+    d_bar = (r[..., :n] * sums[:3, :, :n]).sum(0) / ulen
+    M = sums[3:].reshape(3, 3, B, n + 1)[..., :n]
+    ident = torch.zeros_like(q_scan[..., :1])
+    ident[0] = 1.0
+    q_im1 = torch.cat([ident, q_scan[..., :n - 1]], dim=-1)
+    half_n = _quat_rotate(_quat_conj(q_scan)[:, None], M)   # R_i^T M_i
+    N = _quat_rotate(_quat_conj(q_im1)[:, None],
+                     half_n.transpose(0, 1)).transpose(0, 1)
+    vee = torch.stack([N[1, 2] - N[2, 1], N[2, 0] - N[0, 2],
+                       N[0, 1] - N[1, 0]])
+    sym_a = ((N + N.transpose(0, 1)) * a[None]).sum(1)
+    a_bar = torch.sin(dihedrals) * vee + (1.0 - torch.cos(dihedrals)) * sym_a
+    u_bar = (a_bar - a * (a * a_bar).sum(0)) / ulen
+    # planar-coordinate cotangent: bonds b_m = q_m - q_{m-1}
+    # (m = 2..n+2) and axes u_i = q_{i+2} - q_{i+1}
+    v = torch.zeros_like(g)
+    v[:, :, 0] = g[:, :, 0]
+    v[:, :, 1] = g[:, :, 1] + g[:, :, 2:].sum(-1)
+    v[:, :, 2:] += b_bar
+    v[:, :, 1:-1] -= b_bar
+    v[:, :, 2:-1] += u_bar
+    v[:, :, 1:-2] -= u_bar
+    return d_bar, v.permute(1, 2, 0)
+
+
+@functools.cache
+def _library():
+    """The one-way kernels' library, declared and loaded on first use.
+    ``_build`` is imported here and in the wrappers, not at the top: it
+    imports ``misc``, whose ``__init__`` imports this module."""
+    from . import _build
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _build.register(_LIB, [
+        ("em_one_way_fwd", [I, P, L, L, P, L, L, L, I, I, P, P, P]),
+        ("em_one_way_bwd", [I, P, L, L, P, L, L, L, P, P, L, L, L, I, I, P, P, P]),
+    ])
+    return _build.load_library(_LIB)
+
+
+def _kernel_call(dihedrals: torch.Tensor, cartesian: torch.Tensor):
+    """The kernel library and its dtype flag, after checking what the
+    kernels take."""
+    if dihedrals.device.type != "cuda":
+        raise ValueError(f"unsupported device {dihedrals.device}")
+    if cartesian.device != dihedrals.device:
+        raise ValueError(f"dihedrals on {dihedrals.device}, cartesian on "
+                         f"{cartesian.device}")
+    if (dihedrals.dtype not in (torch.float32, torch.float64)
+            or cartesian.dtype != dihedrals.dtype):
+        raise TypeError(f"the one-way kernels take float32 or float64 tensors "
+                        f"of one type, got {dihedrals.dtype} and {cartesian.dtype}")
+    B, n = dihedrals.shape
+    if n < 1 or cartesian.shape != (B, n + 3, 3):
+        raise ValueError(f"(B, n >= 1) dihedrals and (B, n + 3, 3) coordinates "
+                         f"expected, got {tuple(dihedrals.shape)} and "
+                         f"{tuple(cartesian.shape)}")
+    return _library(), int(dihedrals.dtype == torch.float64)
+
+
+def _one_way_fwd(dihedrals: torch.Tensor, cartesian: torch.Tensor
+                ) -> tuple[torch.Tensor, tuple]:
+    """The forward kernel for CUDA tensors, its plain version for CPU
+    tensors: the curled coordinates and the tensors :func:`_one_way_bwd`
+    takes (for the kernel: the inputs and ``C_0..C_{n-1}``, ``(B, n, 4)``)."""
+    if dihedrals.device.type == "cpu":
+        return _one_way_fwd_plain(dihedrals, cartesian)
+    from . import _build
+
+    lib, is_double = _kernel_call(dihedrals, cartesian)
+    B, n = dihedrals.shape
+    out = torch.empty((B, n + 3, 3), dtype=dihedrals.dtype, device=dihedrals.device)
+    cum = torch.empty((B, n, 4), dtype=dihedrals.dtype, device=dihedrals.device)
+    err = lib.em_one_way_fwd(is_double, dihedrals.data_ptr(), *dihedrals.stride(),
+                             cartesian.data_ptr(), *cartesian.stride(), B, n,
+                             out.data_ptr(), cum.data_ptr(), _build.stream_ptr())
+    _build.launch_counts["one_way_fwd"] += 1
+    _build.check_cuda(lib, err, "em_one_way_fwd")
+    return out, (dihedrals, cartesian, cum)
+
+
+def _one_way_bwd(saved: tuple, grad: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel for CUDA tensors, its plain version for CPU
+    tensors: the cotangents of the dihedrals and the planar coordinates."""
+    if grad.device.type == "cpu":
+        return _one_way_bwd_plain(saved, grad)
+    from . import _build
+
+    dihedrals, cartesian, cum = saved
+    lib, is_double = _kernel_call(dihedrals, cartesian)
+    B, n = dihedrals.shape
+    if grad.dtype != cartesian.dtype:
+        raise TypeError(f"a {cartesian.dtype} cotangent expected, got {grad.dtype}")
+    if grad.shape != cartesian.shape or grad.device != cartesian.device:
+        raise ValueError(f"a {tuple(cartesian.shape)} cotangent on {cartesian.device} "
+                         f"expected, got {tuple(grad.shape)} on {grad.device}")
+    d_bar = torch.empty_like(dihedrals, memory_format=torch.contiguous_format)
+    v = torch.empty((B, n + 3, 3), dtype=grad.dtype, device=grad.device)
+    err = lib.em_one_way_bwd(is_double, dihedrals.data_ptr(), *dihedrals.stride(),
+                             cartesian.data_ptr(), *cartesian.stride(), cum.data_ptr(),
+                             grad.data_ptr(), *grad.stride(), B, n, d_bar.data_ptr(),
+                             v.data_ptr(), _build.stream_ptr())
+    _build.launch_counts["one_way_bwd"] += 1
+    _build.check_cuda(lib, err, "em_one_way_bwd")
+    return d_bar, v
+
+
 class _OneWay(torch.autograd.Function):
     """One half-chain: ``(B, n)`` dihedrals and ``(B, n + 3, 3)`` planar
     coordinates in, curled ``(B, n + 3, 3)`` coordinates out.
@@ -148,61 +300,33 @@ class _OneWay(torch.autograd.Function):
       ``M_i = sum_{m>=i+2} r_m G_m^T``:
       ``a_bar_i = sin(d_i) vee(N_i) + (1 - cos d_i)(N_i + N_i^T) a_i``,
       then ``u_bar = (I - a a^T) a_bar / |u|``.
+
+    CUDA tensors (float32 or float64) go through one hand-written kernel
+    each way (``csrc/backmap_one_way.cu``), CPU tensors through the plain
+    versions :func:`_one_way_fwd_plain` and :func:`_one_way_bwd_plain`; any
+    other type or device raises. The kernels replace no Pallas kernel (the
+    JAX package's ``_one_way`` is plain jnp under a ``custom_vjp``): they
+    take the plain version's ~140 launches of a few microseconds each down
+    to one. What bounds them is the latency of the scan chain, not bytes or
+    operations. One warp per sample walks the chain in tiles of 32 bonds:
+    a warp scan of the quaternions (the earlier product on the left, so up
+    to 32 dihedrals associate as :func:`_cumulative_quats` does) and of the
+    rotated bonds, each carried into the next tile; the backward walks the
+    tiles from the end with reversed scans and carries, and writes each
+    atom's cotangent without atomics, so it is bit-reproducible. Each
+    launch counts in ``_build.launch_counts`` under ``one_way_fwd`` and
+    ``one_way_bwd``.
     """
 
     @staticmethod
     def forward(ctx, dihedrals, cartesian):
-        c = cartesian.permute(2, 0, 1)                  # (3, B, n + 3)
-        u = c[:, :, 2:-1] - c[:, :, 1:-2]               # axes, (3, B, n)
-        ulen = torch.sqrt((u * u).sum(0))
-        a = u / ulen
-        # the reference's x @ R_rodrigues(axis, -d) is a column rotation by
-        # +d: q = (cos(d/2), sin(d/2) a)
-        half = 0.5 * dihedrals
-        q = torch.cat([torch.cos(half)[None], torch.sin(half)[None] * a], 0)
-        q_scan = _cumulative_quats(q)
-        # the last atom shares C_{n-1} with the one before it
-        q_cum = torch.cat([q_scan, q_scan[..., -1:]], dim=-1)
-        r = _quat_rotate(q_cum, c[:, :, 2:] - c[:, :, 1:-1])  # (3, B, n + 1)
-        moved = c[:, :, 1:2] + torch.cumsum(r, dim=-1)
-        ctx.save_for_backward(dihedrals, q_scan, q_cum, r, a, ulen)
-        return torch.cat([c[:, :, :2], moved], -1).permute(1, 2, 0).contiguous()
+        out, saved = _one_way_fwd(dihedrals, cartesian)
+        ctx.save_for_backward(*saved)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        dihedrals, q_scan, q_cum, r, a, ulen = ctx.saved_tensors
-        B, n = dihedrals.shape
-        g = grad.permute(2, 0, 1)                       # (3, B, n + 3)
-        G = _suffix_sums(g[:, :, 2:])                   # (3, B, n + 1)
-        b_bar = _quat_rotate(_quat_conj(q_cum), G)
-        # torsion and moment sums; bond m sits at index m - 2, so
-        # "m >= i + 2" starts at index i
-        sums = _suffix_sums(torch.cat(
-            [torch.linalg.cross(r, G, dim=0),
-             (r[:, None] * G[None]).reshape(9, B, n + 1)], dim=0))
-        d_bar = (r[..., :n] * sums[:3, :, :n]).sum(0) / ulen
-        M = sums[3:].reshape(3, 3, B, n + 1)[..., :n]
-        ident = torch.zeros_like(q_scan[..., :1])
-        ident[0] = 1.0
-        q_im1 = torch.cat([ident, q_scan[..., :n - 1]], dim=-1)
-        half_n = _quat_rotate(_quat_conj(q_scan)[:, None], M)   # R_i^T M_i
-        N = _quat_rotate(_quat_conj(q_im1)[:, None],
-                         half_n.transpose(0, 1)).transpose(0, 1)
-        vee = torch.stack([N[1, 2] - N[2, 1], N[2, 0] - N[0, 2],
-                           N[0, 1] - N[1, 0]])
-        sym_a = ((N + N.transpose(0, 1)) * a[None]).sum(1)
-        a_bar = torch.sin(dihedrals) * vee + (1.0 - torch.cos(dihedrals)) * sym_a
-        u_bar = (a_bar - a * (a * a_bar).sum(0)) / ulen
-        # planar-coordinate cotangent: bonds b_m = q_m - q_{m-1}
-        # (m = 2..n+2) and axes u_i = q_{i+2} - q_{i+1}
-        v = torch.zeros_like(g)
-        v[:, :, 0] = g[:, :, 0]
-        v[:, :, 1] = g[:, :, 1] + g[:, :, 2:].sum(-1)
-        v[:, :, 2:] += b_bar
-        v[:, :, 1:-1] -= b_bar
-        v[:, :, 2:-1] += u_bar
-        v[:, :, 1:-2] -= u_bar
-        return d_bar, v.permute(1, 2, 0)
+        return _one_way_bwd(ctx.saved_tensors, grad)
 
 
 def dihedral_to_cartesian_one_way(dihedrals: torch.Tensor,

@@ -10,10 +10,18 @@ scan, the oracle rotates one dihedral at a time). The hand-derived backward
 of ``_one_way`` passes ``torch.autograd.gradcheck`` in float64, and its
 float32 gradient is held by the rule err(port, f64) <= 3 err(JAX, f64)
 against central finite differences of the float64 oracle.
+
+``data/one_way_jax.npz`` holds float32 half-chains at B=64 and the JAX
+package's ``_one_way`` output and cotangents on them, for the card test
+that holds the one-way CUDA kernels to the JAX package without JAX
+(``tests/test_torch_cuda.py``); a test here recomputes it. Rewrite it
+with ``python -c "from tests.test_torch_backmap import
+write_one_way_jax_file; write_one_way_jax_file()"``.
 """
 
 import functools
 import importlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -133,6 +141,42 @@ def test_one_way_gradcheck_f64(n):
                                     (dih.requires_grad_(), cart.requires_grad_()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [1, 29, 33])
+def test_one_way_on_cpu_runs_the_plain_version(n, dtype):
+    """``_OneWay`` on CPU tensors launches no kernel (``launch_counts``
+    unchanged, the kernels' library never loaded) and gives the plain
+    functions' output and cotangents bit for bit."""
+    from encodermap_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(n)
+    dih = torch.tensor(rng.uniform(-np.pi, np.pi, (3, n)), dtype=dtype)
+    cart = torch.tensor(rng.normal(size=(3, n + 3, 3)), dtype=dtype)
+    g = torch.tensor(rng.normal(size=(3, n + 3, 3)), dtype=dtype)
+    counts = dict(_build.launch_counts)
+    x = [t.clone().requires_grad_(True) for t in (dih, cart)]
+    y = T._OneWay.apply(*x)
+    y.backward(g)
+    out, saved = T._one_way_fwd_plain(dih, cart)
+    d_bar, v = T._one_way_bwd_plain(saved, g)
+    assert dict(_build.launch_counts) == counts
+    assert T._LIB not in _build._loaded
+    for a, b in ((y.detach(), out), (x[0].grad, d_bar), (x[1].grad, v)):
+        assert a.dtype == dtype
+        assert torch.equal(a, b)
+
+
+def test_one_way_kernel_wrappers_refuse_other_devices():
+    """A tensor neither on the CPU nor on a CUDA card raises before any
+    library is loaded."""
+    from encodermap_tpu_torch.ops import _build
+
+    dih, cart = torch.zeros((2, 4), device="meta"), torch.zeros((2, 7, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        T._OneWay.apply(dih, cart)
+    assert T._LIB not in _build._loaded
+
+
 def _fd_grads(dih, cart, g, h=1e-6):
     """Central differences of sum(one_way(dih, cart) * g), float64 oracle."""
     def f(d_, c_):
@@ -175,3 +219,46 @@ def test_one_way_f32_gradient_rule():
         err_port = np.abs(port.grad.numpy() - ref).max()
         err_jax = np.abs(np.asarray(jx) - ref).max()
         assert err_port <= 3 * err_jax, (err_port, err_jax)
+
+
+ONE_WAY_JAX_FILE = Path(__file__).parent / "data" / "one_way_jax.npz"
+#: trp-cage's two halves and one bond past a 32-bond tile
+ONE_WAY_JAX_N = (28, 29, 33)
+
+
+def one_way_jax_reference(n, B=64):
+    """A float32 half-chain of ``n`` dihedrals (planar chain moved off the
+    plane a little, dihedrals, output cotangent ``g``) and the JAX
+    package's float32 ``_one_way`` output and its cotangents (``d_bar``,
+    ``v``), as numpy."""
+    rng = np.random.default_rng(n)
+    cart = chain_in_plane_np(rng.uniform(0.13, 0.155, (B, n + 2)),
+                             rng.uniform(1.6, 2.4, (B, n + 1)))
+    cart = cart + rng.normal(0, 0.01, (B, n + 3, 3))
+    dih = rng.uniform(-np.pi, np.pi, (B, n))
+    g = rng.normal(size=(B, n + 3, 3))
+    dih, cart, g = (x.astype(np.float32) for x in (dih, cart, g))
+    out, vjp = jax.vjp(J._one_way, jnp.asarray(dih), jnp.asarray(cart))
+    d_bar, v = vjp(jnp.asarray(g))
+    return dict(dih=dih, cart=cart, g=g, out=np.asarray(out), d_bar=np.asarray(d_bar),
+                v=np.asarray(v))
+
+
+def write_one_way_jax_file(path=ONE_WAY_JAX_FILE):
+    np.savez_compressed(path, **{f"n{n}_{k}": v for n in ONE_WAY_JAX_N
+                                 for k, v in one_way_jax_reference(n).items()})
+
+
+@pytest.mark.parametrize("n", ONE_WAY_JAX_N)
+def test_one_way_jax_file_holds_the_jax_packages_output(n):
+    """The stored inputs are the seed's, and the stored outputs are what
+    the JAX package's ``_one_way`` gives on them (to 1e-6 of each tensor's
+    largest entry: XLA's CPU code may round otherwise on another CPU)."""
+    stored = np.load(ONE_WAY_JAX_FILE)
+    for k, v in one_way_jax_reference(n).items():
+        got = stored[f"n{n}_{k}"]
+        assert got.dtype == np.float32 and got.shape == v.shape
+        if k in ("dih", "cart", "g"):
+            np.testing.assert_array_equal(got, v)
+        else:
+            np.testing.assert_allclose(got, v, rtol=0, atol=1e-6 * np.abs(v).max())

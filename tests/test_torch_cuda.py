@@ -18,7 +18,9 @@ cluster kernel and the grid kernel, are held to the same bounds.
 
 The ADC cases hold the sigmoid-loss kernels at the widths an ADC step
 gives them, the backmapping's ``_one_way`` on the card against the CPU
-(1e-5 of the largest entry), and two ADC steps on the card against the
+(1e-5 of the largest entry), its CUDA kernels against the plain version
+and against the JAX package's output stored in ``data/one_way_jax.npz``
+(within 3x JAX's float32 distance from float64), and two ADC steps on the card against the
 CPU's general path (losses 1e-5 relative and gradients 1e-3 in relative
 norm at the same weights; after Adam's first step, which turns a
 gradient of rounding noise into a full step of either sign, losses 1e-4
@@ -457,6 +459,160 @@ def test_one_way_on_card_matches_cpu(cuda):
         outs[str(dev)] = [t.detach().cpu() for t in (y, x[0].grad, x[1].grad)]
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+ONE_WAY_N = [1, 28, 29, 31, 32, 33, 64, 236]
+
+
+def _one_way_case(n, dtype, device, B=256, seed=0):
+    """A half-chain's dihedrals, planar chain (moved off the plane a little)
+    and output cotangent, at the main path's bond lengths and angles."""
+    from encodermap_tpu_torch.ops.backmap import chain_in_plane
+
+    rng = np.random.default_rng(seed + n)
+    chain = chain_in_plane(torch.tensor(rng.uniform(0.13, 0.155, (B, n + 2))),
+                           torch.tensor(rng.uniform(1.6, 2.4, (B, n + 1))))
+    chain = chain + torch.tensor(rng.normal(0, 0.01, (B, n + 3, 3)))
+    dih = torch.tensor(rng.uniform(-np.pi, np.pi, (B, n)))
+    g = torch.tensor(rng.normal(size=(B, n + 3, 3)))
+    return [t.to(device, dtype) for t in (dih, chain, g)]
+
+
+def _one_way_kernels(dih, chain, g):
+    from encodermap_tpu_torch.ops.backmap import _one_way_bwd, _one_way_fwd
+
+    out, saved = _one_way_fwd(dih, chain)
+    return [out, *_one_way_bwd(saved, g)]
+
+
+def _one_way_plain(dih, chain, g):
+    from encodermap_tpu_torch.ops.backmap import _one_way_bwd_plain, _one_way_fwd_plain
+
+    out, saved = _one_way_fwd_plain(dih, chain)
+    return [out, *_one_way_bwd_plain(saved, g)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", ONE_WAY_N)
+def test_one_way_kernels_match_plain(cuda, n, dtype):
+    """The one-way kernels' output, dihedral and coordinate cotangents at
+    B=256 against the plain version on the CPU in the same type, at n on
+    both sides of each 32-bond tile edge and trp-cage's halves (28, 29):
+    to 1e-5 of each tensor's largest entry in float32 (the scans associate
+    otherwise past 32 bonds, and the suffix sums always), 1e-12 in float64."""
+    from encodermap_tpu_torch.ops import _build
+
+    x = _one_way_case(n, dtype, cuda)
+    before = {k: _build.launch_counts[k] for k in ("one_way_fwd", "one_way_bwd")}
+    got = _one_way_kernels(*x)
+    assert {k: _build.launch_counts[k] - v for k, v in before.items()} == {
+        "one_way_fwd": 1, "one_way_bwd": 1}
+    want = _one_way_plain(*(t.cpu() for t in x))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float((a.cpu() - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("n", ONE_WAY_N)
+def test_one_way_kernels_f32_within_3x_of_plain_from_float64(cuda, n):
+    """err(kernels f32, plain f64) <= 3 err(plain f32, plain f64), largest
+    absolute error, for the output and both cotangents, B=256 (the rule of
+    ``test_one_way_f32_gradient_rule``, with the plain float32 version in the
+    place of the JAX package's)."""
+    x64 = _one_way_case(n, torch.float64, "cpu")
+    ref = _one_way_plain(*x64)
+    plain = _one_way_plain(*(t.float() for t in x64))
+    got = _one_way_kernels(*(t.to(cuda, torch.float32) for t in x64))
+    for k, p, r in zip(got, plain, ref):
+        err_k = float((k.cpu().double() - r).abs().max())
+        err_p = float((p.double() - r).abs().max())
+        assert err_k <= 3 * err_p, (err_k, err_p)
+
+
+@pytest.mark.parametrize("n", [28, 29, 33])
+def test_one_way_kernels_against_the_jax_package(cuda, n):
+    """The kernels' output and both cotangents, float32, on the half-chains
+    of ``data/one_way_jax.npz`` (B=64), against the JAX package's
+    ``_one_way`` and its VJP stored there (``tests/test_torch_backmap.py``
+    writes and rechecks the file): err(kernels, f64) <= 3 err(JAX f32, f64),
+    largest absolute error, with the port's plain version in float64 as
+    the f64 side (``gradcheck``-ed on the CPU), as
+    ``test_one_way_f32_gradient_rule`` holds the plain version; and the
+    kernels within 1e-5 of each tensor's largest entry of JAX's."""
+    from pathlib import Path
+
+    stored = np.load(Path(__file__).parent / "data" / "one_way_jax.npz")
+    dih, chain, g = (torch.from_numpy(stored[f"n{n}_{k}"]) for k in ("dih", "cart", "g"))
+    got = _one_way_kernels(*(t.to(cuda) for t in (dih, chain, g)))
+    ref = _one_way_plain(*(t.double() for t in (dih, chain, g)))
+    for k, r, name in zip(got, ref, ("out", "d_bar", "v")):
+        jx = torch.from_numpy(stored[f"n{n}_{name}"])
+        err_k = float((k.cpu().double() - r).abs().max())
+        err_j = float((jx.double() - r).abs().max())
+        assert err_k <= 3 * err_j, (name, err_k, err_j)
+        assert float((k.cpu() - jx).abs().max()) <= 1e-5 * float(jx.abs().max()), name
+
+
+def test_one_way_kernels_are_bit_reproducible(cuda):
+    """Two runs of both kernels at a 236-bond half-chain (eight tiles, every
+    carry) give the same bits."""
+    x = _one_way_case(236, torch.float32, cuda)
+    first, second = _one_way_kernels(*x), _one_way_kernels(*x)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_one_way_kernels_take_strided_views(cuda):
+    """``dihedrals_to_cartesian`` hands ``_OneWay`` column slices (the right
+    half) and autograd hands it an expanded cotangent (``sum()``, stride 0):
+    both halves and both cotangents on the card against the CPU, float32,
+    at 1e-5 of the largest entry."""
+    from encodermap_tpu_torch.ops.backmap import dihedrals_to_cartesian
+
+    dih, chain, _ = _one_way_case(57, torch.float32, "cpu")
+    outs = {}
+    for dev in ("cpu", cuda):
+        x = [t.detach().to(dev).requires_grad_(True) for t in (dih, chain)]
+        y = dihedrals_to_cartesian(*x)
+        y.sum().backward()
+        outs[str(dev)] = [t.detach().cpu() for t in (y, x[0].grad, x[1].grad)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_adc_chunk_launches_one_way_kernels(cuda, tmp_path):
+    """One three-step ADC training chunk on the card at trp-cage scale
+    goes through the one-way kernels: each half-chain's forward and
+    backward once a step, so twice a step each."""
+    import encodermap_tpu_torch as em
+    from encodermap_tpu_torch.ops import _build
+
+    p = em.ADCParameters(main_path=str(tmp_path), n_neurons=[128, 128, 2], batch_size=256,
+                         n_steps=3, steps_per_scan=3, seed=0, cartesian_pwd_start=1,
+                         cartesian_pwd_step=3)
+    emap = em.AngleDihedralCartesianEncoderMap(_adc_cvs(20, 1024), p, device=cuda)
+    before = {k: _build.launch_counts[k] for k in ("one_way_fwd", "one_way_bwd")}
+    emap.train()
+    torch.cuda.synchronize()
+    assert {k: _build.launch_counts[k] - v for k, v in before.items()} == {
+        "one_way_fwd": 6, "one_way_bwd": 6}
+
+
+def test_one_way_wrappers_refuse_what_they_do_not_take(cuda):
+    from encodermap_tpu_torch.ops.backmap import _OneWay, _one_way_bwd, _one_way_fwd
+
+    dih, chain, g = _one_way_case(5, torch.float32, cuda, B=4)
+    with pytest.raises(TypeError):
+        _OneWay.apply(dih.half(), chain.half())
+    with pytest.raises(TypeError):
+        _one_way_fwd(dih, chain.double())
+    with pytest.raises(ValueError):
+        _one_way_fwd(dih, chain[:, 1:])
+    with pytest.raises(ValueError):
+        _one_way_fwd(dih, chain.cpu())
+    _, saved = _one_way_fwd(dih, chain)
+    with pytest.raises(TypeError):
+        _one_way_bwd(saved, g.half())
 
 
 def test_sidechain_backmap_on_card_matches_cpu(cuda):
