@@ -3,8 +3,10 @@ into training data, made on the device with a ``torch.Generator`` and
 handed to the program (and later to the reference) as host arrays.
 
 A traffic mix is a data file ``portbench/traffic/<name>.json`` whose
-``generator`` key names one of :data:`GENERATORS`; a new mix of either
-kind is a new data file and no code.
+``generator`` key names one of :data:`GENERATORS`, or else a maker
+``portbench/makers/<generator>.py`` that ``harness.make_data`` loads: a new
+mix of a kind that exists is a new data file and no code, and a new kind
+of data is a new maker file beside it.
 """
 
 from __future__ import annotations
@@ -114,6 +116,15 @@ def make(traffic: dict, seed: int, device, frames: int | None = None):
     """The mix's data at its own frame count, or at ``frames`` (tests)."""
     return GENERATORS[traffic["generator"]](
         traffic, seed, device, int(frames if frames is not None else traffic["frames"]))
+
+
+def frame_count(data) -> int:
+    """The frames of a mix's data: the rows of its array, or of its CV
+    dict's ``central_angles`` where it has them, else of its first CV."""
+    if not isinstance(data, dict):
+        return len(data)
+    return len(data["central_angles"] if "central_angles" in data
+               else next(iter(data.values())))
 
 
 def check_rows(n_frames: int, steps: int, batch: int, seed: int, device) -> np.ndarray:

@@ -2,17 +2,35 @@
 the comparison with the plain reference, and the result line.
 
 Everything that belongs to one cell, configuration, traffic mix or
-per-layer metric is a file of its own that this module finds by name:
-``workloads/<cell>.json``, ``configs/<config>.json``,
-``traffic/<traffic>.json``, ``reference/<config>.py`` and
-``metrics/<metric>.py``; ``BENCHMARK.json`` at the checkout's root says
-which metrics a cell reports.
+per-layer metric is a file of its own that this module finds by name, and
+``BENCHMARK.json`` at the checkout's root says which metrics a cell
+reports. A configuration of another mode of the program enters as new
+files alone:
+
+- ``makers/<generator>.py``, where the mix's ``generator`` is none of
+  ``generators.GENERATORS``: ``make(traffic, seed, device, frames)``
+  returns the data the model takes, one array or a dict of CV arrays (it
+  may use ``generators`` and ``proteins``);
+- ``configs/<config>.json``: the model and its ``parameters``;
+- ``traffic/<traffic>.json``: the mix's parameters and its ``generator``;
+- ``workloads/<cell>.json``: the cell's configuration, mix, chips,
+  ``trace_chunks`` and the ``limits`` of its comparison;
+- ``reference/<config>.py``: ``weight_shapes(parameters, data)``, whose
+  names ``<group>.<i>.<kernel|bias>`` give the program's weight groups
+  (``<i>`` an index, or a key where the group is keyed by name),
+  ``follow(parameters, weights, data, rows, dtype, device)`` and, where
+  the cost readers need other widths than :func:`shapes` counts,
+  ``shapes(parameters, data)``;
+- ``metrics/<metric>.py``: a reader over the run's context, with the
+  spans and counters of the traced chunks in ``ctx["spans"]``.
 
 The program under test is ``encodermap_tpu_torch`` and only it: the window
 drives ``train()`` of the cell's model through the public API, and a
 callback added with ``add_callback`` marks the window's start and end at
 chunk ends (``train/autoencoder.py`` calls it after the chunk's metrics are
-on the host, so the device has finished the chunk).
+on the host, so the device has finished the chunk). In a ``--trace 1`` run
+the program's spans (``misc/profiling.py``) are on over the traced chunks
+only, so no measured window runs with them.
 """
 
 from __future__ import annotations
@@ -36,6 +54,8 @@ import numpy as np
 import torch
 
 from portbench import generators
+from portbench import spans as spans_mod
+from portbench import trace as trace_mod
 
 ROOT = Path(__file__).resolve().parents[1]
 #: top-level module names that no process of a run may hold
@@ -92,21 +112,26 @@ def forbidden_modules() -> list[str]:
 
 # ------------------------------------------------------------------ model
 def params_tree(w: dict) -> dict:
-    """The program's ``{"encoder": [...], "decoder": [...]}`` of the
-    benchmark's named weights."""
-    out = {}
-    for part in ("encoder", "decoder"):
-        n = sum(1 for k in w if k.startswith(part + ".") and k.endswith(".kernel"))
-        out[part] = [{"kernel": w[f"{part}.{i}.kernel"], "bias": w[f"{part}.{i}.bias"]}
-                     for i in range(n)]
-    return out
+    """The program's parameter tree of the benchmark's named weights
+    ``<group>.<i>.<kernel|bias>``: each group a list of layers where its
+    ``<i>`` are indices (``encoder``, ``decoder``), else a dict of layers by
+    key (the sparse ADC's ``densifiers``), in the order the names come."""
+    groups: dict = {}
+    for name in w:
+        group, key, leaf = name.rsplit(".", 2)
+        groups.setdefault(group, {}).setdefault(key, {})[leaf] = w[name]
+    return {g: [layers[k] for k in sorted(layers, key=int)]
+            if all(k.isdigit() for k in layers) else layers
+            for g, layers in groups.items()}
 
 
 def named(tree: dict) -> dict:
     """The inverse of :func:`params_tree`, as host float64 copies."""
-    return {f"{part}.{i}.{k}": layer[k].detach().to("cpu", torch.float64).clone()
-            for part in ("encoder", "decoder")
-            for i, layer in enumerate(tree[part]) for k in ("kernel", "bias")}
+    return {f"{group}.{key}.{leaf}": x.detach().to("cpu", torch.float64).clone()
+            for group, layers in tree.items()
+            for key, layer in (enumerate(layers) if isinstance(layers, list)
+                               else layers.items())
+            for leaf, x in layer.items()}
 
 
 def build_model(cfg: dict, data, weights: dict, seed: int, main_path: str, device):
@@ -198,19 +223,38 @@ def check_steps(model, rows: np.ndarray) -> dict:
             "delta": {k: end[k] - start[k] for k in start}}
 
 
+def _counters() -> dict:
+    """A copy of every counter of the program's registry
+    (``misc/profiling.py::counter``, ``launches`` among them), which has no
+    public listing."""
+    from encodermap_tpu_torch.misc import profiling
+
+    return {k: dict(v) for k, v in profiling._counters.items()}
+
+
 class _Window:
     """The measured window between chunk ends: it opens when the first
     chunk of ``train()`` (the warm-up of the window's own shapes) has
     ended and closes at the first chunk end ``seconds`` later; with
-    ``trace_chunks`` the profiler then records that many more chunks."""
+    ``trace_chunks`` the profiler then records that many more chunks, and
+    with ``spans`` the program's spans are on over those chunks alone.
+    ``snaps`` keeps ``(span_totals(), counters)`` where the traced chunks
+    begin and end (``trace_open``, ``trace_close``), and where the window
+    opens and closes if a caller had the spans on (``open``, ``close``)."""
 
-    def __init__(self, seconds: float, trace_chunks: int, device) -> None:
+    def __init__(self, seconds: float, trace_chunks: int, device,
+                 spans: bool = False) -> None:
+        from encodermap_tpu_torch.misc import profiling
+
         self.seconds, self.trace_chunks, self.device = seconds, trace_chunks, device
+        self.spans, self.profiling = spans, profiling
         self.t0 = self.t1 = self.trace_t0 = self.trace_t1 = None
         self.steps = self.nonfinite = 0
         self.traced_chunks = self.traced_steps = 0
         self.prof = None
         self.chunk_s: list = []
+        self.snaps: dict = {}
+        self.spans_on = contextlib.ExitStack()
         self._last = None
 
     def callback(self):
@@ -224,11 +268,16 @@ class _Window:
 
         return Window()
 
+    def _snap(self, key: str) -> None:
+        self.snaps[key] = (self.profiling.span_totals(), _counters())
+
     def chunk_end(self, loss: np.ndarray):
         _sync(self.device)
         now = time.perf_counter()
         if self.t0 is None:
             self.t0 = self._last = now
+            if self.profiling.spans_enabled():
+                self._snap("open")
             return None
         if self.prof is not None:
             self.traced_chunks += 1
@@ -236,6 +285,9 @@ class _Window:
             if self.traced_chunks < self.trace_chunks:
                 return None
             self.trace_t1 = now
+            if self.spans:
+                self._snap("trace_close")
+                self.spans_on.close()
             self.prof.stop()
             return False
         self.chunk_s.append(now - self._last)
@@ -245,6 +297,8 @@ class _Window:
         if now - self.t0 < self.seconds:
             return None
         self.t1 = now
+        if self.profiling.spans_enabled():
+            self._snap("close")
         if not self.trace_chunks:
             return False
         from torch.profiler import ProfilerActivity, profile
@@ -254,6 +308,9 @@ class _Window:
             acts.append(ProfilerActivity.CUDA)
         self.prof = profile(activities=acts)
         self.prof.start()
+        if self.spans:
+            self.spans_on.enter_context(self.profiling.record_spans())
+            self._snap("trace_open")
         self.trace_t0 = time.perf_counter()
         return None
 
@@ -278,8 +335,12 @@ def compare(prog: dict, ref: dict, detail: Optional[dict] = None) -> dict:
     the median leaf, whichever is larger; the same for each leaf's change
     after the first step and after all steps, leaving out leaves whose
     reference gradient is under a thousandth of the median leaf's (they
-    move by round-off). ``detail`` receives each step's gap and the leaves
-    that set the largest gaps."""
+    move by round-off); and the median leaf's gap of each of the three,
+    steady from seed to seed where the largest swings with one small leaf's
+    rounding (a gradient near Adam's eps flips its first update, or a
+    decoded angle's ill-conditioned atan2: PERF.md §2). A cell's workload
+    names the numbers it holds. ``detail`` receives each step's gap and the
+    leaves that set the largest gaps."""
     steps = [abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"])]
     if len(prog["losses"]) != len(ref["losses"]):
         steps.append(math.inf)
@@ -295,13 +356,17 @@ def compare(prog: dict, ref: dict, detail: Optional[dict] = None) -> dict:
                       change_leaf=max(change, key=change.get),
                       left_out=sorted(set(gr) - set(keep)))
     return {"loss1_gap": steps[0], "loss_gap": max(steps), "grad_gap": max(grad.values()),
-            "change1_gap": max(change1.values()), "change_gap": max(change.values())}
+            "change1_gap": max(change1.values()), "change_gap": max(change.values()),
+            "grad_med_gap": statistics.median(grad.values()),
+            "change1_med_gap": statistics.median(change1.values()),
+            "change_med_gap": statistics.median(change.values())}
 
 
 def reference_module(cell: dict):
     """The plain reference of the cell's configuration,
-    ``reference/<config>.py``: ``weight_shapes(parameters, data)`` and
-    ``follow(parameters, weights, data, rows, dtype, device)``."""
+    ``reference/<config>.py``: ``weight_shapes(parameters, data)``,
+    ``follow(parameters, weights, data, rows, dtype, device)`` and
+    optionally ``shapes(parameters, data)``."""
     name = cell["config"]["name"]
     return load_module(cell["root"] / "portbench" / "reference" / f"{name}.py",
                        f"portbench_reference_{name.replace('-', '_')}")
@@ -342,28 +407,50 @@ def device_info(device, peak: int) -> dict:
 
 
 # -------------------------------------------------------------------- run
+def make_data(cell: dict, seed: int, device, frames: int | None = None):
+    """The traffic mix's data at its own frame count, or at ``frames``
+    (tests): from one of ``generators.GENERATORS``, or else from the maker
+    ``makers/<generator>.py`` that the mix names."""
+    traffic = cell["traffic"]
+    name = traffic["generator"]
+    if name in generators.GENERATORS:
+        return generators.make(traffic, seed, device, frames)
+    maker = load_module(cell["root"] / "portbench" / "makers" / f"{name}.py",
+                        "portbench_maker_" + name.replace("-", "_").replace(".", "_"))
+    return maker.make(traffic, seed, device,
+                      int(frames if frames is not None else traffic["frames"]))
+
+
+def cell_shapes(cell: dict, reference, data) -> dict:
+    """The widths the cost readers count from: the reference's
+    ``shapes(parameters, data)`` where it has one, else :func:`shapes`."""
+    if hasattr(reference, "shapes"):
+        return reference.shapes(cell["config"]["parameters"], data)
+    return shapes(cell["config"], data)
+
+
 def prepare(cell: dict, seed: int, device, frames: int | None = None) -> tuple:
     """What a run and the controls make from the seed: the traffic mix's
     data (host arrays), the reference module, the weights (float32 on the
     device) and the checked steps' rows."""
     cfg = cell["config"]
-    data = generators.make(cell["traffic"], seed, device, frames)
-    n_frames = len(data) if isinstance(data, np.ndarray) else len(data["central_angles"])
+    data = make_data(cell, seed, device, frames)
     reference = reference_module(cell)
     weights = generators.weights(reference.weight_shapes(cfg["parameters"], data),
                                  seed, device)
-    rows = generators.check_rows(n_frames, CHECK_STEPS, cfg["parameters"]["batch_size"],
-                                 seed, device)
+    rows = generators.check_rows(generators.frame_count(data), CHECK_STEPS,
+                                 cfg["parameters"]["batch_size"], seed, device)
     return data, reference, weights, rows
 
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
         device="cuda", frames: int | None = None, root: Path = ROOT,
-        trace_chunks: int | None = None) -> dict:
+        trace_chunks: int | None = None, context: dict | None = None) -> dict:
     """One run; returns the result line's object. ``frames`` and
-    ``trace_chunks`` shrink the traffic mix and the traced sub-window, and
-    ``device="cpu"`` runs without a card: all for tests only, the command
-    line takes none of them."""
+    ``trace_chunks`` shrink the traffic mix and the traced sub-window,
+    ``device="cpu"`` runs without a card, and ``context`` receives the
+    readers' context: all for tests and ``spans.py`` only, the command line
+    takes none of them."""
     cell = load_cell(cell_name, root)
     cfg, work = cell["config"], cell["workload"]
     if not work.get("limits"):
@@ -373,7 +460,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
     t = time.perf_counter()
     data, reference, weights, rows = prepare(cell, seed, device, frames)
     log(f"{cell_name}: data {time.perf_counter() - t:.2f} s")
-    shp = shapes(cfg, data)
+    shp = cell_shapes(cell, reference, data)
     host_weights = {k: v.detach().cpu().clone() for k, v in weights.items()}
     cuda = torch.device(device).type == "cuda"
     if cuda:
@@ -381,6 +468,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
         torch.cuda.reset_peak_memory_stats()
 
     main_path = tempfile.mkdtemp(prefix="portbench-")
+    win = None
     try:
         t = time.perf_counter()
         model = build_model(cfg, data, weights, seed, main_path, device)
@@ -395,7 +483,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
         # every run of a cell with an end-to-end metric from the device trace
         from_trace = any(m["source"] == "device_trace" for m in cell["end_to_end"])
         traced = int(trace_chunks or work["trace_chunks"]) if trace or from_trace else 0
-        win = _Window(seconds, traced, device)
+        win = _Window(seconds, traced, device, spans=trace)
         model.p.n_steps = model.state.step + 10 ** 12
         model.add_callback(win.callback())
         model.train()
@@ -421,6 +509,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
         if cuda:
             torch.cuda.empty_cache()
     finally:
+        if win is not None:
+            win.spans_on.close()
         shutil.rmtree(main_path, ignore_errors=True)
 
     if win.t1 is None:
@@ -431,17 +521,23 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
            "samples_per_s": win.steps * B / (win.t1 - win.t0),
            "shapes": shp, "cell": cell}
     if traced:
-        from portbench import trace as trace_mod
-
         if win.trace_t1 is None:
             raise RuntimeError("the traced sub-window did not close")
-        ctx["trace"] = trace_mod.summarize(prof.events(), win.trace_t1 - win.trace_t0,
-                                           BACKMAP_OPS)
+        events = prof.events()
+        # the spans' host ranges and their mirrors on the device are no
+        # operations of the program: the trace's numbers are read without them
+        ctx["trace"] = trace_mod.summarize(spans_mod.without_spans(events),
+                                           win.trace_t1 - win.trace_t0, BACKMAP_OPS)
         ctx["traced_steps"] = win.traced_steps
         if ctx["trace"]["device_ops"] > MAX_TRACED_OPS:
             raise RuntimeError(f"{ctx['trace']['device_ops']} device operations traced: "
                                f"more than the profiler records whole")
-        del prof
+        if trace:
+            ctx["spans"] = spans_mod.run_context(events, win.snaps, win.traced_chunks,
+                                                 win.traced_steps)
+        del prof, events
+    if context is not None:
+        context.update(ctx)
     metrics = read_metrics(cell, ctx, trace)
 
     t = time.perf_counter()

@@ -1,6 +1,6 @@
 """The arithmetic of the per-layer metrics, over a run's context: the trace
 summary (``trace.summarize``), the traced steps, the measured window and
-the cell's shapes (``harness.shapes``). Each function returns None where
+the cell's shapes (``harness.cell_shapes``). Each function returns None where
 its run has nothing to read, and never 0 for a share of a roofline or of
 the peak. ``metrics/<name>.py`` binds one of them to a metric's name."""
 

@@ -64,9 +64,12 @@ def mlp(W: dict, part: str, x: torch.Tensor, acts: list) -> torch.Tensor:
 
 
 def periodic_abs(a: torch.Tensor, b: torch.Tensor, period: float) -> torch.Tensor:
-    """``|a - b|`` on a circle of ``period`` (inf: on the line)."""
+    """``|a - b|`` on a circle of ``period`` (inf: on the line): the
+    absolute value of ``min(|a - b|, period - |a - b|)``, as the reference's
+    ``mean_abs`` costs take it, so that sides more than a period apart (the
+    sparse mode's densified inputs) read as the program reads them."""
     d = torch.abs(a - b)
-    return d if math.isinf(period) else torch.minimum(d, period - d)
+    return d if math.isinf(period) else torch.abs(torch.minimum(d, period - d))
 
 
 def pair_d2(h: torch.Tensor, period: float, block: int = 32) -> torch.Tensor:
@@ -93,9 +96,11 @@ def sigmoid_of_d2(d2: torch.Tensor, sig: float, a: float, b: float) -> torch.Ten
 
 def sketchmap(h: torch.Tensor, latent: torch.Tensor, params, period: float) -> torch.Tensor:
     """Mean over all ordered pairs (the diagonal too) of the squared
-    difference of the two sides' sigmoids; ``h`` is data, no gradient."""
+    difference of the two sides' sigmoids. ``h`` carries a gradient only
+    where it depends on the weights (the sparse mode's trainable
+    densifiers), as in the reference's graph; data has none."""
     sh, ah, bh, sl, al, bl = (float(x) for x in params)
-    s_h = sigmoid_of_d2(pair_d2(h.detach(), period), sh, ah, bh)
+    s_h = sigmoid_of_d2(pair_d2(h, period), sh, ah, bh)
     diff = latent[:, None, :] - latent[None, :, :]
     s_l = sigmoid_of_d2((diff * diff).sum(-1), sl, al, bl)
     return torch.mean(torch.square(s_h - s_l))

@@ -15,9 +15,14 @@ Time that no span covers is reported under :data:`OUTSIDE`. The profiler
 mirrors each span on the device as an annotation named like it; those are
 not operations and are left out.
 
+A ``--trace 1`` run of the harness has the spans on over its traced chunks
+and puts :func:`run_context` into the readers' ``ctx["spans"]``; the
+metrics ``metrics/*_ms_per_*.py`` of the spans read it by :func:`readings`.
+
 ``python3 portbench/spans.py --workload <cell> --seed <n> --seconds <s>``
-runs a cell as ``portbench/run.py --trace 1`` does, with the spans on, and
-prints the span table and the numbers of :func:`readings` as one JSON line;
+runs a cell as ``portbench/run.py --trace 1`` does, with the spans on from
+the start, and prints the span table and the numbers of :func:`readings`
+(the window's and the set-up's too) as one JSON line;
 ``--mode cost`` trains the cell's model in blocks of chunks with the spans
 off and on in turn, and prints each block's wall time per step and what one
 span costs the host, off and on.
@@ -48,6 +53,12 @@ OUTSIDE = "(outside every span)"
 
 def is_span(name: str) -> bool:
     return name.startswith(PREFIXES)
+
+
+def without_spans(events) -> list:
+    """A profiler's events without the spans' host ranges and their
+    annotations on the device: what the trace holds with the spans off."""
+    return [e for e in events if not is_span(e.name)]
 
 
 def _open_at(spans: list, times: list) -> list:
@@ -149,6 +160,37 @@ def window(before: dict, after: dict) -> dict:
     return out
 
 
+def counter_deltas(before: dict, after: dict) -> dict:
+    """The program's counters (``{counter: {key: count}}``) between two
+    snapshots: each key that moved, by how much."""
+    out = {}
+    for name, c in after.items():
+        b = before.get(name, {})
+        moved = {k: v - b.get(k, 0) for k, v in c.items() if v != b.get(k, 0)}
+        if moved:
+            out[name] = moved
+    return out
+
+
+def run_context(events, snaps: dict, traced_chunks: int, traced_steps: int) -> dict:
+    """``ctx["spans"]`` of a traced run: ``trace`` (:func:`summarize` of the
+    traced chunks' events), ``window`` and ``counters`` (span totals and
+    counter deltas over the traced chunks, from the harness's snapshots
+    ``trace_open`` and ``trace_close``), ``traced_chunks``,
+    ``traced_steps``, and where the spans were on from the start
+    (:func:`traced_run`) ``setup`` and ``measured``: the span totals before
+    the measured window and in it."""
+    sp = {"trace": summarize(events), "traced_chunks": traced_chunks,
+          "traced_steps": traced_steps}
+    if "trace_open" in snaps and "trace_close" in snaps:
+        (s0, c0), (s1, c1) = snaps["trace_open"], snaps["trace_close"]
+        sp["window"], sp["counters"] = window(s0, s1), counter_deltas(c0, c1)
+    if "open" in snaps and "close" in snaps:
+        sp["setup"] = window({}, snaps["open"][0])
+        sp["measured"] = window(snaps["open"][0], snaps["close"][0])
+    return sp
+
+
 # --------------------------------------------------------------- readings
 def _entry(name: str) -> bool:
     """The Entry point's share: ``train()``'s own spans but the chunk
@@ -157,10 +199,11 @@ def _entry(name: str) -> bool:
 
 
 def readings(sp: dict) -> dict:
-    """The per-layer numbers from ``sp``: ``setup`` and ``window`` (span
-    totals before the window and in it), ``trace`` (:func:`summarize` of the
-    traced chunks, or None), ``traced_chunks`` and ``traced_steps``. A
-    number with nothing to read is left out."""
+    """The per-layer numbers from ``sp`` (:func:`run_context`): the idle
+    time a traced chunk and the device time a traced step by layer from
+    ``trace``, and with the spans on from the start the host's time a step
+    in the measured window (``measured``) and the uploads before it
+    (``setup``). A number with nothing to read is left out."""
     out = {}
     tr, chunks, steps = sp.get("trace"), sp.get("traced_chunks"), sp.get("traced_steps")
     if tr and chunks and tr["idle_total_s"] > 0:
@@ -172,7 +215,7 @@ def readings(sp: dict) -> dict:
             d = tr["device_incl_s"].get(f"step.{phase}")
             if d:
                 out[f"{phase}_device_ms_per_step"] = 1e3 * d / steps
-    step = sp.get("window", {}).get("trainer.step")
+    step = sp.get("measured", {}).get("trainer.step")
     if step:
         out["dispatch_ms_per_step"] = 1e3 * step[1] / step[0]
     upload = sp.get("setup", {}).get("train.upload")
@@ -182,8 +225,9 @@ def readings(sp: dict) -> dict:
 
 
 def table(sp: dict) -> list:
-    """Rows ``[name, window count, total ms, self ms, traced idle ms,
-    traced device ms (own), traced device ms (with nested)]``."""
+    """Rows ``[name, count, total ms, self ms over the traced chunks,
+    traced idle ms, traced device ms (own), traced device ms (with
+    nested)]``."""
     win, tr = sp.get("window", {}), sp.get("trace") or {}
     names = sorted(set(win) | set(tr.get("idle_s", {})) | set(tr.get("device_s", {})))
     return [[n, win.get(n, (0,))[0], 1e3 * win.get(n, (0, 0.0))[1],
@@ -195,48 +239,16 @@ def table(sp: dict) -> list:
 # ------------------------------------------------------------------ runs
 def traced_run(cell_name: str, seed: int, seconds: float, t_start: float, **kw) -> tuple:
     """``harness.run(..., trace=True)`` with the spans on from before the
-    model is built: its result, and the spans' context for
-    :func:`readings` (span snapshots at the window's opening and close, the
-    traced chunks' :func:`summarize`). The harness's own trace summary gets
-    the events without the spans' device annotations."""
+    model is built: its result, and its ``ctx["spans"]`` (with ``setup``
+    and ``measured``: :func:`run_context`)."""
     from encodermap_tpu_torch.misc import profiling
-    from torch.autograd import DeviceType
 
     from portbench import harness
 
-    sp: dict = {}
-    snaps: dict = {}
-
-    class Window(harness._Window):
-        def chunk_end(self, loss):
-            t0, t1 = self.t0, self.t1
-            out = super().chunk_end(loss)
-            if t0 is None and self.t0 is not None:
-                snaps["open"] = profiling.span_totals()
-            if t1 is None and self.t1 is not None:
-                snaps["close"] = profiling.span_totals()
-            sp["traced_chunks"], sp["traced_steps"] = self.traced_chunks, self.traced_steps
-            return out
-
-    real_summarize = trace_mod.summarize
-
-    def both(events, *a, **k):
-        events = list(events)
-        sp["trace"] = summarize(events)
-        kept = [e for e in events if not (is_span(e.name) and e.device_type != DeviceType.CPU)]
-        return real_summarize(kept, *a, **k)
-
-    real_window = harness._Window
-    harness._Window, trace_mod.summarize = Window, both
-    try:
-        with profiling.record_spans():
-            result = harness.run(cell_name, seed, seconds, True, t_start, **kw)
-    finally:
-        harness._Window, trace_mod.summarize = real_window, real_summarize
-    zero: dict = {}
-    sp["setup"] = window(zero, snaps.get("open", zero))
-    sp["window"] = window(snaps.get("open", zero), snaps.get("close", zero))
-    return result, sp
+    ctx: dict = {}
+    with profiling.record_spans():
+        result = harness.run(cell_name, seed, seconds, True, t_start, context=ctx, **kw)
+    return result, ctx["spans"]
 
 
 def span_cost_us(n: int = 200_000) -> dict:

@@ -81,5 +81,10 @@ def test_a_broken_train_step_is_not_correct(cpu_run, monkeypatch, cell, fault):
     failed = [k for k, c in r["checks"].items() if c["value"] > c["limit"]]
     assert failed
     if fault is _unchanged:
-        assert r["checks"]["change_gap"]["value"] == pytest.approx(1.0)
-        assert r["checks"]["grad_gap"]["value"] == pytest.approx(1.0)
+        # the worst leaf reads 1; the median leaf at least a half (the
+        # leaves at or above the median leaf's norm read 1)
+        held = {k: c["value"] for k, c in r["checks"].items()
+                if k.startswith(("grad_", "change_"))}
+        assert {k[:4] for k in held} == {"grad", "chan"}
+        for k, v in held.items():
+            assert v >= 0.5 if "_med_" in k else v == pytest.approx(1.0), (k, v)

@@ -92,8 +92,16 @@ def test_the_result_line_has_the_contract_keys_with_the_checks_last(cpu_run):
 
 
 def test_a_cell_with_a_device_trace_metric_traces_every_run(cpu_run, monkeypatch):
+    """Every run of the ADC cell traces a chunk for the device time a step;
+    a ``--trace 0`` run never switches the program's spans on for it."""
+    from encodermap_tpu_torch.misc import profiling
+
     from portbench import trace
 
+    entered = []
+    real_spans = profiling.record_spans
+    monkeypatch.setattr(profiling, "record_spans",
+                        lambda: entered.append(1) or real_spans())
     seen = []
 
     real = trace.summarize
@@ -106,6 +114,7 @@ def test_a_cell_with_a_device_trace_metric_traces_every_run(cpu_run, monkeypatch
     seen.clear()
     cpu_run("em-ala2-b256")
     assert not seen
+    assert not entered
 
 
 def test_the_device_time_per_step_is_the_busy_time_over_the_traced_steps():
@@ -179,6 +188,156 @@ def test_a_cell_configuration_and_metric_are_added_as_new_files(tmp_path):
     after = _digest(root)
     changed = [k for k in before if before[k] != after[k]]
     assert changed == ["BENCHMARK.json"]
+
+
+#: a maker of a new kind of data: trp-cage CVs whose last side dihedrals
+#: are missing (NaN) in every other frame, as a mixed-topology ensemble pads
+#: them; the program then trains in its masked-dense "sparse" mode
+SPARSE_MAKER = """
+import numpy as np
+
+from portbench import generators
+
+
+def make(traffic, seed, device, frames):
+    out = generators.protein_cvs(traffic, seed, device, frames)
+    out["side_dihedrals"][1::2, -int(traffic["missing"]):] = np.nan
+    return out
+"""
+
+#: the sparse mode's reference: each input zero-filled where NaN and passed
+#: through its square densifier, a third weight group, then the ADC's loss
+SPARSE_REFERENCE = """
+import importlib.util
+import pathlib
+
+import torch
+
+_spec = importlib.util.spec_from_file_location(
+    "adc_base", pathlib.Path(__file__).with_name("adc-128-128-2.py"))
+base = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(base)
+
+INPUTS = {"angles": "central_angles", "dihedrals": "central_dihedrals",
+          "cartesians": "central_cartesians", "distances": "central_distances",
+          "side_dihedrals": "side_dihedrals"}
+
+
+def _widths(data):
+    return {k: data[v][0].size for k, v in INPUTS.items()}
+
+
+def shapes(p, data):
+    return {"family": "adc-sparse", "densified": sorted(_widths(data))}
+
+
+def weight_shapes(p, data):
+    out = base.weight_shapes(p, data)
+    for k, w in _widths(data).items():
+        out += [(f"densifiers.{k}.kernel", (w, w)), (f"densifiers.{k}.bias", (w,))]
+    return out
+
+
+def loss(p, W, batch):
+    dense = []
+    for k, x in zip(INPUTS, batch):
+        y = torch.nan_to_num(x).reshape(len(x), -1)
+        y = y @ W[f"densifiers.{k}.kernel"] + W[f"densifiers.{k}.bias"]
+        dense.append(y.reshape(x.shape))
+    core = {k: w for k, w in W.items() if not k.startswith("densifiers.")}
+    return base.loss(p, core, tuple(dense))
+
+
+def follow(p, weights, data, rows, dtype, device):
+    base._check(p)
+
+    def batch(r):
+        return lambda: tuple(torch.as_tensor(data[k][r], device=device).to(dtype)
+                             for k in base.CVS)
+
+    return base.plain.follow(lambda W, b: loss(p, W, b), weights,
+                             [batch(r) for r in rows], p["learning_rate"], 1.0, dtype, device)
+"""
+
+
+def test_a_cell_of_another_mode_is_added_as_new_files(tmp_path, monkeypatch):
+    """A configuration whose data come from a new maker, whose shapes come
+    from its reference and whose weights have a third group (the sparse
+    ADC's densifiers) runs with BENCHMARK.json the only file changed."""
+    root = _bare_copy(tmp_path)
+    here = root / "portbench"
+    before = _digest(root)
+    (here / "makers").mkdir()
+    (here / "makers" / "nan-padded-cvs.py").write_text(SPARSE_MAKER)
+    traffic = json.loads((here / "traffic" / "trpcage-cvs-1m.json").read_text())
+    traffic.update(generator="nan-padded-cvs", missing=3)
+    (here / "traffic" / "trpcage-sparse.json").write_text(json.dumps(traffic))
+    cfg = json.loads((here / "configs" / "adc-128-128-2.json").read_text())
+    cfg["name"] = "adc-sparse"
+    cfg["parameters"]["trainable_dense_to_sparse"] = True
+    (here / "configs" / "adc-sparse.json").write_text(json.dumps(cfg))
+    (here / "reference" / "adc-sparse.py").write_text(SPARSE_REFERENCE)
+    work = json.loads((here / "workloads" / "adc-trpcage-b256.json").read_text())
+    work.update(config="adc-sparse", traffic="trpcage-sparse")
+    (here / "workloads" / "adc-sparse-b256.json").write_text(json.dumps(work))
+    (here / "metrics" / "densified_inputs.adc.py").write_text(
+        'def read(ctx):\n    return len(ctx["shapes"]["densified"])\n')
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["per_layer"].append({"name": "densified_inputs.adc", "unit": "inputs",
+                               "better": "lower", "source": "program_counter",
+                               "layer": "ADC step", "moves": "adc_device_ms_per_step",
+                               "workloads": ["adc-sparse-b256"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    seen = []
+    real = harness.compare
+    monkeypatch.setattr(harness, "compare",
+                        lambda prog, ref, *a: seen.append((prog, ref)) or real(prog, ref, *a))
+    import contextlib
+    import time
+    with contextlib.redirect_stdout(sys.stderr):
+        r = harness.run("adc-sparse-b256", 2 ** 31 + 13, 0.01, True, time.perf_counter(),
+                        device="cpu", frames=1200, root=root, trace_chunks=1)
+    assert r["correct"], r["checks"]
+    assert r["metrics"]["densified_inputs.adc"]["value"] == 5
+    (prog, ref), = seen
+    for side in (prog, ref):
+        grads = {k: float(v.norm()) for k, v in side["grad1"].items()}
+        assert len(grads) == 2 * (3 + 3 + 5)
+        assert grads["densifiers.side_dihedrals.kernel"] > 0
+        assert float(side["delta"]["densifiers.angles.kernel"].norm()) > 0
+    after = _digest(root)
+    assert [k for k in before if before[k] != after[k]] == ["BENCHMARK.json"]
+
+
+def test_a_traced_run_has_the_spans_on_over_its_traced_chunks_alone(cpu_run, monkeypatch):
+    """``--trace 1`` switches the spans on over its traced chunks and off
+    again, and a counter's change over those chunks reaches
+    ``ctx["spans"]``."""
+    from encodermap_tpu_torch.misc import profiling
+    from encodermap_tpu_torch.train.callbacks import Callback
+
+    class Count(Callback):
+        def on_chunk_end(self, first_step, metrics):
+            if profiling.spans_enabled():
+                profiling.counter("portbench.test")["chunks with spans"] += 1
+
+    build = harness.build_model
+
+    def build_model(*a, **k):
+        model = build(*a, **k)
+        model.add_callback(Count())
+        return model
+
+    monkeypatch.setattr(harness, "build_model", build_model)
+    ctx: dict = {}
+    r = cpu_run("em-ala2-b256", trace=True, context=ctx)
+    assert r["correct"], r["checks"]
+    assert not profiling.spans_enabled()
+    sp = ctx["spans"]
+    assert sp["traced_chunks"] == 1 and sp["window"]["trainer.step"][0] == 100
+    assert sp["counters"]["portbench.test"] == {"chunks with spans": 1}
+    # spans off in the measured window: nothing to read there
+    assert "measured" not in sp and "setup" not in sp
 
 
 def test_every_reader_declares_what_benchmark_json_says():

@@ -87,7 +87,7 @@ def test_time_outside_every_span_is_reported_as_such():
 def test_readings_split_the_idle_time_and_read_the_windows():
     sp = {"trace": spans.summarize(STEP), "traced_chunks": 1, "traced_steps": 1,
           "setup": {"train.upload": (2, 1.5, 1.5)},
-          "window": {"trainer.step": (10, 0.15, 0.01)}}
+          "measured": {"trainer.step": (10, 0.15, 0.01)}}
     got = spans.readings(sp)
     assert got["entry_idle_ms_per_chunk"] == pytest.approx(1e3 * 345e-6)
     assert got["trainer_idle_ms_per_chunk"] == pytest.approx(1e3 * 150e-6)
@@ -112,9 +112,10 @@ def test_a_traced_run_with_spans_on_reads_the_window_and_the_setup():
                                       frames=TINY_FRAMES[cell], trace_chunks=1)
     assert result["correct"], result["checks"]
     # the window's steps, counted by the program's spans and by the harness
-    assert sp["window"]["trainer.step"][0] == result["attempted"]
-    assert sp["window"]["train.chunk"][0] == result["attempted"] // 100
+    assert sp["measured"]["trainer.step"][0] == result["attempted"]
+    assert sp["measured"]["train.chunk"][0] == result["attempted"] // 100
     assert sp["traced_chunks"] == 1 and sp["traced_steps"] == 100
+    assert sp["window"]["trainer.step"][0] == 100
     # the traced chunk's spans are in the trace, nested: no device on the CPU
     assert sp["trace"]["span_counts"]["trainer.step"] == 100
     got = spans.readings(sp)
@@ -134,3 +135,21 @@ def test_the_cost_run_times_blocks_with_spans_off_and_on():
     # spans counted in the block with spans on only: one chunk of 100 steps
     assert got["spans_on"]["trainer.step"][0] == 100
     assert got["spans_on"]["train.chunk"][0] == 1
+
+
+def test_the_trace_summary_is_the_same_without_the_spans_events():
+    from portbench import trace
+
+    ops = [e for e in STEP if not spans.is_span(e.name)]
+    assert len(ops) < len(STEP)
+    with_spans = trace.summarize(STEP, 1e-3)
+    assert trace.summarize(spans.without_spans(STEP), 1e-3) == trace.summarize(ops, 1e-3)
+    # left in, the annotation counts as an operation and names idle gaps
+    assert with_spans["device_ops"] == trace.summarize(ops, 1e-3)["device_ops"] + 1
+    assert "step.backward" in dict(with_spans["breakdown"]["idle_gaps"])
+
+
+def test_counter_deltas_keep_the_keys_that_moved():
+    before = {"launches": {"a": 2, "b": 1}}
+    after = {"launches": {"a": 5, "b": 1, "c": 1}, "new": {"x": 0}}
+    assert spans.counter_deltas(before, after) == {"launches": {"a": 3, "c": 1}}
