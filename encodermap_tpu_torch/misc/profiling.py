@@ -16,8 +16,10 @@ chunk trainer ``trainer.draw`` and ``trainer.launch`` (fused kernel) or
 ``trainer.step`` (the general route, one a step); in a general-route step
 ``step.forward``, ``step.backward``, ``step.optimizer`` and
 ``step.metrics``; in the ADC's forward and losses ``adc.encode``,
-``adc.decode``, ``adc.backmap`` and ``adc.losses``. Spans are **off by
-default**, and then cost one flag check. Two ways to see them:
+``adc.decode``, ``adc.backmap`` and ``adc.losses``, and in the sidechain
+backmap's backward (``reconstruct_sidechains=True``, under
+``step.backward``) ``adc.backmap_backward``. Spans are **off by default**,
+and then cost one flag check. Two ways to see them:
 
 - :func:`trace` and :func:`profile_steps` switch them on for their block:
   each span is then a ``record_function`` range in the Chrome trace, on the
@@ -38,7 +40,9 @@ default**, and then cost one flag check. Two ways to see them:
 
 **Counters.** :func:`counter` returns a named ``collections.Counter`` of
 the process; :data:`launches` counts the port's kernel launches by kernel
-name (``ops/_build.py::launch_counts`` is the same object).
+name (``ops/_build.py::launch_counts`` is the same object), and, while the
+spans are on, ``sidechain_backmap`` the sidechain backmap's calls and rows
+forward and backward (``ops/backmap_sidechains.py::backmap_sidechains_train``).
 """
 
 from __future__ import annotations

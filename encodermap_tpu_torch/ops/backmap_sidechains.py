@@ -15,11 +15,18 @@ reference's ``BackMapLayerWithSidechains``, ``models/layers.py:219-902``):
   loops over the static tables here. It is the oracle and the plain
   version.
 * :func:`backmap_sidechains_fast` is the log-depth form that training
-  uses: every "current" value the sweep measures is fixed (pi, pi/2, 0 or
-  +-pi), so the angle phase is closed-form headings (cumsums) and the
-  dihedral phase telescopes into cumulative quaternion products of
-  rotations about fixed in-plane axes: one scan over the backbone, one over
-  every branch at once.
+  uses: every "current" value the sweep measures is set by the plane tree
+  (pi, pi/2; a dihedral 0 where the chain turns the same way at both ends
+  of its bond, else pi: a decoded angle below 0 turns it the other way), so
+  the angle phase is closed-form headings (cumsums) and the dihedral phase
+  telescopes into cumulative quaternion products of rotations about fixed
+  in-plane axes: one scan over the backbone, one over every branch at once.
+  The JAX package's form takes every dihedral as angles in (0, pi) give it
+  (a recorded divergence).
+* :func:`backmap_sidechains_train` is the fast form as the training step
+  calls it: with the spans on (``misc/profiling.py``) it counts its rows
+  (counter ``sidechain_backmap``) and runs its backward under the span
+  ``adc.backmap_backward``; with them off it is the fast form.
 
 PyTorch has no ``associative_scan``: both scans run through
 ``ops/backmap.py``'s doubling scan (``_cumulative_quats``, ``ceil(log2 n)``
@@ -38,11 +45,13 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..misc.profiling import counter, span, spans_enabled
 from .backmap import _cumulative_quats, _quat_compose, _quat_rotate
 
 __all__ = ["SidechainBackmapSpec", "backmap_sidechains", "backmap_sidechains_fast",
-           "make_spec"]
+           "backmap_sidechains_train", "make_spec"]
 
 
 class SidechainBackmapSpec(NamedTuple):
@@ -371,8 +380,8 @@ def _fast_tables(spec: SidechainBackmapSpec, device: torch.device) -> dict:
     br_col_start = nb + np.cumsum(lens) - lens
     thresholds = np.asarray([int((~cmasks[:, c]).sum()) for c in br_col_start],
                             np.int64)
-    first = np.zeros((n_br, max_len))
-    first[:, 0] = pi
+    first_step = np.zeros((n_br, max_len - 1), bool)
+    first_step[:, 0] = True
     bidx = np.concatenate([np.full(L, bi) for bi, L in enumerate(lens)])
     jidx = np.concatenate([np.arange(L) for L in lens])
 
@@ -383,7 +392,7 @@ def _fast_tables(spec: SidechainBackmapSpec, device: torch.device) -> dict:
         n_br=n_br, max_len=max_len, gath=t(gath), mask=t(mask), ca_idx=t(branches * 3 + 1),
         bond_quat_idx=t(np.minimum(np.arange(2, nb) - 2, max(n_cdi - 1, 0))),
         thr_idx=t(np.maximum(thresholds - 1, 0)), thr_on=t(thresholds > 0),
-        sdi_cols=t(sdi_cols), sdi_mask=t(sdi_mask), first=t(first), bidx=t(bidx),
+        sdi_cols=t(sdi_cols), sdi_mask=t(sdi_mask), first_step=t(first_step), bidx=t(bidx),
         jidx=t(jidx))
     _TABLES[key] = tables
     return tables
@@ -414,7 +423,13 @@ def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch
     # C_i = q_0 (x) ... (x) q_i; bond k (atoms k-1 -> k) is rotated by
     # C_min(k-2, n_cdi-1), the first bond by nothing
     if n_cdi:
-        C_c = _cumulative_quats(_axis_angle_quat(h[:, 1:n_cdi + 1], central_dihedrals))
+        # the sweep's current dihedral: 0 where the plane chain turns the
+        # same way at both ends of the bond, pi where the turns differ (a
+        # decoded angle below 0 turns the other way)
+        turn = torch.sin(central_angles.detach())
+        trans = turn[:, :-1] * turn[:, 1:] < 0
+        C_c = _cumulative_quats(_axis_angle_quat(
+            h[:, 1:n_cdi + 1], torch.add(central_dihedrals, trans, alpha=-pi)))
         bb_quats = torch.cat([_identity((B, 1), h), C_c[:, :, tb["bond_quat_idx"]]],
                              dim=-1)
     else:  # one residue: no central dihedral, no rotated bond
@@ -444,9 +459,15 @@ def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch
     else:
         C_thr = _identity((B, n_br), h)
     # side dihedral quaternions: step k of a branch turns about phi_k by its
-    # target (less pi on the first step); padded steps are the identity
-    ang = (side_dihedrals[:, tb["sdi_cols"]] - tb["first"].to(dtype)) \
-        * tb["sdi_mask"].to(dtype)
+    # target less the sweep's current dihedral, pi where the plane branch
+    # turns different ways at the bond's two ends, else 0; padded steps are
+    # the identity. The turns' sines are sin(sa_0) into the first bond and
+    # -sin(sa_k) after, so the first step (pi for angles in (0, pi)) reads
+    # the product's sign the other way round
+    turn = torch.sin(sa_p.detach())
+    trans = (turn[..., :-1] * turn[..., 1:] < 0) ^ tb["first_step"]
+    ang = torch.add(side_dihedrals[:, tb["sdi_cols"]],
+                    F.pad(trans, (0, 1)), alpha=-pi) * tb["sdi_mask"].to(dtype)
     q_s = torch.where(tb["sdi_mask"], _axis_angle_quat(phi, ang),
                       _identity((1, 1, 1), h))
     C_s = _cumulative_quats(q_s)  # along each branch: (4, B, n_br, max_len)
@@ -457,3 +478,57 @@ def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch
     br_pos = ca_pos[..., None] + torch.cumsum(_quat_rotate(bond_quats, br_planar), dim=-1)
     side_pos = br_pos[:, :, tb["bidx"], tb["jidx"]]  # (3, B, n_side_atoms)
     return torch.cat([bb_pos, side_pos], dim=-1).permute(1, 2, 0).contiguous()
+
+
+# ------------------------------------------------------------ training call
+class _SpannedBackmap(torch.autograd.Function):
+    """:func:`backmap_sidechains_fast` with its backward under the span
+    ``adc.backmap_backward``. The forward builds the fast form's graph on
+    detached inputs; the backward runs autograd over that saved graph inside
+    the span. The operations and their order are those of autograd through
+    the fast form: nothing is recomputed, and each input that takes a
+    gradient reaches the coordinates through one use, so its gradient is
+    the same sum. Its backward is not differentiated again (a second
+    derivative raises)."""
+
+    @staticmethod
+    def forward(ctx, spec, *inputs):
+        needs = ctx.needs_input_grad[1:]
+        leaves = [x.detach().requires_grad_(need) for x, need in zip(inputs, needs)]
+        with torch.enable_grad():
+            out = backmap_sidechains_fast(spec, *leaves)
+        ctx.out = out
+        ctx.leaves = [x for x, need in zip(leaves, needs) if need]
+        return out.detach()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        with span("adc.backmap_backward"):
+            # the graph is kept for a second backward through the step's
+            # graph, as autograd through the fast form would allow
+            grads = iter(torch.autograd.grad(ctx.out, ctx.leaves, grad, retain_graph=True))
+        count = counter("sidechain_backmap")
+        count["bwd"] += 1
+        count["rows_bwd"] += grad.shape[0]
+        return (None,) + tuple(next(grads) if need else None
+                               for need in ctx.needs_input_grad[1:])
+
+
+def backmap_sidechains_train(spec: SidechainBackmapSpec, *inputs: torch.Tensor
+                             ) -> torch.Tensor:
+    """:func:`backmap_sidechains_fast` (same arguments and result) as the
+    training step calls it. With the spans off it is the fast form. With
+    them on, the counter ``sidechain_backmap`` counts the calls and rows
+    backmapped forward (``fwd``, ``rows_fwd``) and backward (``bwd``,
+    ``rows_bwd``), and where a gradient is taken the backward's operations
+    run under the span ``adc.backmap_backward``, with gradients bit for bit
+    those of autograd through the fast form."""
+    if not spans_enabled():
+        return backmap_sidechains_fast(spec, *inputs)
+    count = counter("sidechain_backmap")
+    count["fwd"] += 1
+    count["rows_fwd"] += inputs[0].shape[0]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return _SpannedBackmap.apply(spec, *inputs)
+    return backmap_sidechains_fast(spec, *inputs)

@@ -34,6 +34,7 @@ Run as a script, this file is the worker of one rank::
     python tests/test_torch_distributed.py <rank> <world> <rendezvous file> <dir>
 """
 
+import contextlib
 import os
 import pickle
 import subprocess
@@ -313,14 +314,18 @@ def dp(tmp_path_factory):
         ref_jax, ref_port = {}, {}
         from encodermap_tpu_torch.train import adc_autoencoder as adc_t
         import encodermap_tpu.train.adc_autoencoder as adc_j
+        from tests.jax_sidechains import measured
 
         for name, ej in jax_models.items():
             patched = adc_j.MIN_ANALYTIC_ATOMS
             if name == "adc_analytic":
                 adc_j.MIN_ANALYTIC_ATOMS = 1
             try:
-                hist = (ej.train_streaming(iter(specs[name]["superbatches"]))
-                        if name == "streaming" else ej.train())
+                # the JAX package's reconstruct mode with the sweep's current
+                # dihedrals, as the port takes them (tests/jax_sidechains.py)
+                with measured() if name == "adc_sidechains" else contextlib.nullcontext():
+                    hist = (ej.train_streaming(iter(specs[name]["superbatches"]))
+                            if name == "streaming" else ej.train())
             finally:
                 adc_j.MIN_ANALYTIC_ATOMS = patched
             ref_jax[name] = _jax_result(ej, hist)

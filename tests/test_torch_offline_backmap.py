@@ -199,7 +199,13 @@ LOSS_RTOL = {"sidechains": 1e-5, "reconstruct": 1e-4}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_adc_from_traj_ensemble_matches_jax_step_for_step(peptide, tmp_path, mode):
+def test_adc_from_traj_ensemble_matches_jax_step_for_step(peptide, tmp_path, monkeypatch,
+                                                          mode):
+    from tests.jax_sidechains import J, measured_fast
+
+    # the JAX package's reconstruct mode with the sweep's current dihedrals,
+    # as the port takes them (tests/jax_sidechains.py)
+    monkeypatch.setattr(J, "backmap_sidechains_fast", measured_fast)
     _, _, _, d = peptide
     which, extra = MODES[mode]
     files = [str(d / "p.xtc"), str(d / "p.xtc")]

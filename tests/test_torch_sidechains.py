@@ -17,12 +17,24 @@ Tolerances and why:
   (``angle_clip=None``) in float64 to 1e-9 nm; the clipped sweep is off by
   the clip's bias, 4.5e-4 rad per angle, as in the JAX package (up to
   2.7e-3 nm at 20 residues: held to 5e-3).
+* The fast version also equals the sequential one on decoded angles of
+  either sign, (-pi, pi], to 1e-9 nm in float64: a negative angle turns
+  the plane chain the other way, and the current dihedral the sweep
+  measures across such a turn is pi, not the 0 (pi on a branch's first
+  step) that angles in (0, pi) give.
 * The fast version's autograd passes ``gradcheck`` in float64, and its
   float32 gradient meets err(port f32, f64) <= 3 err(JAX f32, f64).
+* With the spans on, training calls the fast version through an autograd
+  function whose backward runs under its own span: the same operations,
+  so gradients and trained parameters bit for bit those of spans off.
 * The trainer follows JAX step for step over 5 steps at [16,16,2], B=16,
   from JAX's weights and indices: each loss term to 1e-5 relative to the
   largest value of its curve, the parameters to 1e-4; encode, decode,
-  generate and the cost references at the same weights to 1e-5.
+  generate and the cost references at the same weights to 1e-5. The JAX
+  package's fast backmap takes each current dihedral as angles in (0, pi)
+  give it, which decoded angles need not be (a recorded divergence): in
+  this file it runs with the sweep's current dihedrals, given to it as
+  shifted targets (``tests/jax_sidechains.py``).
 """
 
 import jax
@@ -35,10 +47,12 @@ import encodermap_tpu as emj
 import encodermap_tpu.ops.backmap_sidechains as J
 import encodermap_tpu_torch as emt
 import encodermap_tpu_torch.ops.backmap_sidechains as T
-from chip_smoke import TRP_CAGE, TRP_CAGE_SIDECHAIN_INFO
+from chip_smoke import TRP_CAGE, TRP_CAGE_SIDECHAIN_INFO, sidechain_cvs
 from encodermap_tpu.train.metrics import ADCRMSDMetric as RmsdJ
 from encodermap_tpu_torch.convert import params_to_numpy
+from encodermap_tpu_torch.misc import profiling as P
 from encodermap_tpu_torch.train.metrics import ADCRMSDMetric as RmsdT
+from tests.jax_sidechains import measured
 
 torch.set_num_threads(1)
 
@@ -47,6 +61,12 @@ INFOS = {"mixed": INFO, "none": {1: 0, 2: 0, 3: 0}, "single": {1: 3},
          "single-branch": {1: 0, 2: 5, 3: 0}, "small": {1: 1, 2: 2},
          "trp-cage": TRP_CAGE_SIDECHAIN_INFO}
 N_FRAMES, B, STEPS = 64, 16, 5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_fast_measured():
+    with measured():
+        yield
 
 
 def _inputs(info, B=3, seed=0):
@@ -115,12 +135,100 @@ def test_fast_equals_sequential_in_float64(name):
     np.testing.assert_allclose(fast.numpy(), T.backmap_sidechains(spec, *x).numpy(), atol=5e-3)
 
 
+@pytest.mark.parametrize("name", ["mixed", "single", "single-branch", "trp-cage"])
+def test_fast_equals_sequential_on_angles_of_either_sign(name):
+    """Decoded angles lie on (-pi, pi]: where one is negative the plane
+    chain turns the other way, and the fast version takes the current
+    dihedral the sweep measures there."""
+    info = INFOS[name]
+    spec = T.make_spec(info)
+    rng = np.random.default_rng(6)
+    x = [torch.tensor(v) for v in _inputs(info, B=8, seed=6)]
+    for i in (1, 4):
+        x[i] = torch.tensor(rng.uniform(-np.pi, np.pi, tuple(x[i].shape)))
+    assert (x[1] < 0).any() and (x[4] < 0).any()
+    np.testing.assert_allclose(T.backmap_sidechains_fast(spec, *x).numpy(),
+                               T.backmap_sidechains(spec, *x, angle_clip=None).numpy(),
+                               atol=1e-9)
+
+
 @pytest.mark.parametrize("name", ["mixed", "small"])
 def test_fast_gradcheck_float64(name):
     info = INFOS[name]
     spec = T.make_spec(info)
     x = tuple(torch.tensor(v, requires_grad=True) for v in _inputs(info, B=2, seed=2))
     assert torch.autograd.gradcheck(lambda *a: T.backmap_sidechains_fast(spec, *a), x)
+
+
+#: the inputs that take a gradient in training: the decoded angles and
+#: dihedrals; the bond lengths are data
+DECODED = (1, 2, 4, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spanned_backmap_gradients_equal_autograd_bit_for_bit(dtype):
+    """With the spans on, ``backmap_sidechains_train`` gives the fast
+    version's coordinates and, under a loss that also reads the decoded
+    inputs directly (as training's angle costs do), its gradients bit for
+    bit; it counts its rows and runs its backward under its own span."""
+    spec = T.make_spec(TRP_CAGE_SIDECHAIN_INFO)
+    x = _inputs(TRP_CAGE_SIDECHAIN_INFO, B=8, seed=7)
+    w = torch.randn((8, spec.n_atoms, 3), generator=torch.Generator().manual_seed(8),
+                    dtype=dtype)
+
+    def run(spanned):
+        xs = [torch.tensor(v, dtype=dtype).requires_grad_(i in DECODED)
+              for i, v in enumerate(x)]
+        fn = T.backmap_sidechains_train if spanned else T.backmap_sidechains_fast
+        out = fn(spec, *xs)
+        loss = (out * w).sum() + sum(torch.sin(xs[i]).sum() for i in DECODED)
+        return out, torch.autograd.grad(loss, [xs[i] for i in DECODED])
+
+    plain_out, plain_grads = run(False)
+    before, count = P.span_totals(), dict(P.counter("sidechain_backmap"))
+    with P.record_spans():
+        out, grads = run(True)
+    assert torch.equal(out, plain_out)
+    for a, b in zip(grads, plain_grads):
+        assert torch.equal(a, b)
+    got = P.span_totals()["adc.backmap_backward"].count
+    assert got - before.get("adc.backmap_backward", P.SpanTotal(0, 0.0, 0.0)).count == 1
+    moved = {k: v - count.get(k, 0) for k, v in P.counter("sidechain_backmap").items()}
+    assert moved == {"fwd": 1, "rows_fwd": 8, "bwd": 1, "rows_bwd": 8}
+
+
+def test_spanned_backmap_gradcheck_float64():
+    spec = T.make_spec(INFO)
+    x = tuple(torch.tensor(v, requires_grad=True) for v in _inputs(INFO, B=2, seed=9))
+    with P.record_spans():
+        assert torch.autograd.gradcheck(lambda *a: T.backmap_sidechains_train(spec, *a), x)
+
+
+def test_training_with_spans_on_equals_training_with_them_off(tmp_path):
+    """A reconstruct-mode ADC trained with the spans on (its sidechain
+    backmap through the spanned function) ends bit for bit where one
+    trained with them off ends; spans off record nothing."""
+    cvs = sidechain_cvs(256, seed=3, device="cpu")
+
+    def train(name):
+        p = emt.ADCParameters(main_path=str(tmp_path / name), n_steps=6, steps_per_scan=3,
+                              batch_size=32, n_neurons=[16, 16, 2], seed=2,
+                              reconstruct_sidechains=True,
+                              sidechain_info=TRP_CAGE_SIDECHAIN_INFO,
+                              use_backbone_angles=True, distance_cost_scale=1.0)
+        model = emt.AngleDihedralCartesianEncoderMap(cvs, p, device="cpu", read_only=True)
+        model.train()
+        return params_to_numpy(model.state.params)[0]
+
+    totals, count = P.span_totals(), dict(P.counter("sidechain_backmap"))
+    off = train("off")
+    assert P.span_totals() == totals and dict(P.counter("sidechain_backmap")) == count
+    with P.record_spans():
+        on = train("on")
+    assert P.span_totals()["adc.backmap_backward"].count \
+        - totals.get("adc.backmap_backward", P.SpanTotal(0, 0.0, 0.0)).count == 6
+    for a, b in zip(jax.tree_util.tree_leaves(off), jax.tree_util.tree_leaves(on)):
+        assert np.array_equal(a, b)
 
 
 def test_fast_float32_gradient_rule():

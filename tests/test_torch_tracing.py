@@ -23,7 +23,9 @@ TRAIN = {"train.upload", "train.chunk", "train.fetch", "train.log", "train.persi
          "train.callback.CheckpointSaver"}
 STEP = {"step.forward", "step.backward", "step.optimizer", "step.metrics"}
 ADC = {"adc.encode", "adc.decode", "adc.backmap", "adc.losses"}
-STEPS, CHUNK = 12, 4
+#: the sidechain backmap's backward, under step.backward
+SIDE = {"adc.backmap_backward"}
+STEPS, CHUNK, ROWS = 12, 4, 32
 
 
 def _emap(tmp_path, steps=STEPS):
@@ -61,7 +63,23 @@ def _adc(tmp_path, steps=STEPS):
     return emt.AngleDihedralCartesianEncoderMap(cvs, ap, device="cpu")
 
 
-MODELS = {"general": _emap, "fused": _fused, "adc": _adc}
+def _sidechains(tmp_path, steps=STEPS):
+    """A reconstruct-mode ADC on trp-cage CVs made from a seed."""
+    from chip_smoke import TRP_CAGE_SIDECHAIN_INFO, sidechain_cvs
+
+    ap = emt.ADCParameters(main_path=str(tmp_path / "sidechains"), n_steps=steps,
+                           steps_per_scan=CHUNK, batch_size=ROWS, n_neurons=[16, 16, 2],
+                           reconstruct_sidechains=True,
+                           sidechain_info=TRP_CAGE_SIDECHAIN_INFO, use_backbone_angles=True)
+    return emt.AngleDihedralCartesianEncoderMap(sidechain_cvs(128, device="cpu"), ap,
+                                                device="cpu")
+
+
+MODELS = {"general": _emap, "fused": _fused, "adc": _adc, "sidechains": _sidechains}
+
+
+def _side_count() -> dict:
+    return dict(P.counter("sidechain_backmap"))
 
 
 def _window(fn):
@@ -77,7 +95,7 @@ def _window(fn):
 
 # ------------------------------------------------------------------- off
 @pytest.mark.parametrize("profiler", [False, True], ids=["plain", "under_profiler"])
-@pytest.mark.parametrize("model", ["general", "adc"])
+@pytest.mark.parametrize("model", ["general", "adc", "sidechains"])
 def test_spans_off_record_nothing_and_enter_no_record_function(tmp_path, monkeypatch,
                                                                model, profiler):
     def refuse(*a, **k):
@@ -86,7 +104,7 @@ def test_spans_off_record_nothing_and_enter_no_record_function(tmp_path, monkeyp
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     emap = MODELS[model](tmp_path)
     assert not P.spans_enabled()
-    before = P.span_totals()
+    before, count = P.span_totals(), _side_count()
     if profiler:
         from torch.profiler import ProfilerActivity, profile
 
@@ -99,18 +117,25 @@ def test_spans_off_record_nothing_and_enter_no_record_function(tmp_path, monkeyp
         emap.train()
     assert emap.state.step == STEPS
     assert P.span_totals() == before
+    assert _side_count() == count
     assert P.span("train.chunk") is P.span("step.forward")  # the shared null context
 
 
 # -------------------------------------------------------------------- on
-@pytest.mark.parametrize("model", ["general", "fused", "adc"])
+@pytest.mark.parametrize("model", ["general", "fused", "adc", "sidechains"])
 def test_spans_on_mark_every_layer_once_per_step_or_chunk(tmp_path, model):
     emap = MODELS[model](tmp_path)
+    count = _side_count()
     got = _window(emap.train)
+    moved = {k: v - count.get(k, 0) for k, v in _side_count().items() if v != count.get(k, 0)}
     chunks = STEPS // CHUNK
     per_step = {"fused": {"trainer.draw", "trainer.launch"},
                 "general": {"trainer.step"} | STEP,
-                "adc": {"trainer.step"} | STEP | ADC}[model]
+                "adc": {"trainer.step"} | STEP | ADC,
+                "sidechains": {"trainer.step"} | STEP | ADC | SIDE}[model]
+    # the sidechain backmap's calls and rows, forward and backward, a step
+    assert moved == ({"fwd": STEPS, "rows_fwd": STEPS * ROWS, "bwd": STEPS,
+                      "rows_bwd": STEPS * ROWS} if model == "sidechains" else {})
     assert set(got) == TRAIN | per_step
     for name, tot in got.items():
         if name in ("train.upload", "train.persist"):
@@ -123,7 +148,8 @@ def test_spans_on_mark_every_layer_once_per_step_or_chunk(tmp_path, model):
         assert 0 <= tot.self_s <= tot.total_s, name
     for child, parent in [(c, "train.chunk") for c in per_step if c.startswith("trainer.")] \
             + [(c, "trainer.step") for c in per_step & STEP] \
-            + [(c, "step.forward") for c in per_step & ADC]:
+            + [(c, "step.forward") for c in per_step & ADC] \
+            + [(c, "step.backward") for c in per_step & SIDE]:
         assert got[child].total_s <= got[parent].total_s, (child, parent)
     assert sum(got[c].total_s for c in per_step & STEP) <= got.get(
         "trainer.step", P.SpanTotal(0, 0.0, 0.0)).total_s + 1e-12
@@ -198,6 +224,22 @@ def test_trace_writes_the_spans_nested_under_the_chunk(tmp_path):
         assert all(_within(e, by["train.chunk"]) for e in by[name]), name
     for name in ADC:
         assert all(_within(e, by["step.forward"]) for e in by[name]), name
+
+
+def test_trace_nests_the_sidechain_backward_under_the_step_backward(tmp_path):
+    """One ``adc.backmap_backward`` a step, inside that step's
+    ``step.backward``, with the backward's operations inside it."""
+    emap = _sidechains(tmp_path)
+    with P.trace(tmp_path / "profile", device="cpu"):
+        emap.train()
+    by = {}
+    for e in _trace_events(tmp_path / "profile"):
+        by.setdefault(e["name"], []).append(e)
+    assert len(by["adc.backmap_backward"]) == len(by["step.backward"]) == STEPS
+    assert all(_within(e, by["step.backward"]) for e in by["adc.backmap_backward"])
+    inside = [e for e in by.get("aten::cumsum", []) + by.get("aten::mul", [])
+              if _within(e, by["adc.backmap_backward"])]
+    assert inside
 
 
 def test_profile_steps_traces_the_spans(tmp_path):
