@@ -41,8 +41,9 @@ same steps on one device. ``phase_adc`` also holds the trained ADC's step
 gradients to the float64 oracle ``ops/adc_adjoint.py::hand_adc_step`` on
 the card (the kernels within 3x of the plain version's distance from
 it), and holds the backmap's one-way kernels against their plain versions
-at trp-cage's two halves and at 236 bonds, B=256 (``hold_one_way``); every
-ADC leg checks how often they launch. The observability leg trains config
+at trp-cage's two halves and at 236 bonds, B=256 (``hold_one_way``), and
+the sidechain leg the sidechain backmap's kernels at trp-cage, B=256
+(``hold_sidechain``); every ADC leg checks how often they launch. The observability leg trains config
 1 with TensorBoard events, the model summary and a latent-histogram image written
 by a callback, reads the event file back (CRCs, tags, steps, float32
 values equal to the JSONL rows), trains the ADC with TensorBoard on,
@@ -1522,13 +1523,104 @@ def hold_one_way(B: int = 256, ns: tuple = (28, 29, 236), reps: int = 200) -> di
     return out
 
 
-def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int, one_way: int = 2) -> tuple:
+def sidechain_bytes(spec, B: int, itemsize: int = 4) -> tuple[int, int]:
+    """Bytes the sidechain backmap reads and writes at least, forward and
+    backward: the six inputs in, the coordinates out; the coordinates'
+    cotangent and the inputs in, their gradients out. What the kernels keep
+    between the two (each bond's rotation and heading) is the design's
+    choice, not the function's, and is left out."""
+    nb, ns = 3 * spec.n_residues, spec.n_sidechain_atoms
+    n_br = int(np.count_nonzero(spec.side_atoms_per_res))
+    inputs = (nb - 1) + (nb - 2) + (nb - 3) + ns + ns + (ns - n_br)
+    coords = 3 * spec.n_atoms
+    return B * (inputs + coords) * itemsize, B * (coords + 2 * inputs) * itemsize
+
+
+def hold_sidechain(B: int = 256, reps: int = 200) -> dict:
+    """The sidechain backmap's kernels (``csrc/backmap_sidechains.cu``) at
+    trp-cage (114 atoms, 17 branches), B=256, float32, decoded angles of
+    either sign: the coordinates and the gradients of all six inputs held
+    to the port's rule for kernels, err(kernels, f64) <= 3 err(plain f32,
+    f64) + 1e-6 of the largest entry (``tests/test_torch_cuda.py::
+    test_sidechain_backmap_on_card_matches_cpu``'s), against the plain
+    version in float64 on the card; two launches give the same bits. Times
+    each kernel on the card alone (a CUDA graph of ``reps`` calls), the
+    plain version's forward and its autograd backward on the card alone
+    (``device_split`` over 20 calls: a CUDA graph would not capture
+    autograd), and forward and backward with the host (``time_ms``) both
+    ways; the bound is ``sidechain_bytes`` at 3.35 TB/s.
+    Returns the forward's and the backward's (abs err, ms, plain ms,
+    bound) and the host times."""
+    from encodermap_tpu_torch.ops.backmap_sidechains import (
+        _backmap_sidechains_fast_plain,
+        _sidechain_bwd,
+        _sidechain_fwd,
+        make_spec,
+    )
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from sigmoid_time import device_ms
+
+    spec = make_spec(TRP_CAGE_SIDECHAIN_INFO)
+    rng = np.random.default_rng(23)
+    nb, ns = 3 * spec.n_residues, spec.n_sidechain_atoms
+    x64 = [torch.tensor(v, device="cuda") for v in (
+        rng.uniform(0.13, 0.155, (B, nb - 1)), rng.uniform(-np.pi, np.pi, (B, nb - 2)),
+        rng.uniform(-np.pi, np.pi, (B, nb - 3)), rng.uniform(0.13, 0.16, (B, ns)),
+        rng.uniform(-np.pi, np.pi, (B, ns)),
+        rng.uniform(-np.pi, np.pi, (B, sum(TRP_CAGE_SIDECHAIN_INFO.values()))))]
+    g64 = torch.tensor(rng.normal(size=(B, spec.n_atoms, 3)), device="cuda")
+    x, g = [t.float() for t in x64], g64.float()
+
+    def kernels():
+        out, quat, head = _sidechain_fwd(spec, x)
+        return [out, *_sidechain_bwd(spec, x, quat, head, g)]
+
+    def plain(inputs, cot):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        out = _backmap_sidechains_fast_plain(spec, *leaves)
+        return [out.detach(), *torch.autograd.grad(out, leaves, cot)]
+
+    got, again, want, want64 = kernels(), kernels(), plain(x, g), plain(x64, g64)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    f64 = [(float((a.double() - c).abs().max()), float((b.double() - c).abs().max()),
+            float(c.abs().max())) for a, b, c in zip(got, want, want64)]
+    _, quat, head = _sidechain_fwd(spec, x)
+    ms = (device_ms(torch, lambda: _sidechain_fwd(spec, x), reps),
+          device_ms(torch, lambda: _sidechain_bwd(spec, x, quat, head, g), reps))
+    leaves = [t.clone().requires_grad_(True) for t in x]
+    out = _backmap_sidechains_fast_plain(spec, *leaves)
+    label = f"sidechain B={B}"
+    ms_p = tuple(device_split(lambda: [fn() for _ in range(20)], time_ms(fn, 20), 20,
+                              f"{label} plain {way}")
+                 for way, fn in (("fwd", lambda: _backmap_sidechains_fast_plain(spec, *x)),
+                                 ("bwd", lambda: torch.autograd.grad(out, leaves, g,
+                                                                     retain_graph=True))))
+    host = time_ms(kernels, reps), time_ms(lambda: plain(x, g), 20)
+    bound = [(1e3 * b / PEAK_BYTES_PER_S, "bytes") for b in sidechain_bytes(spec, B)]
+    log(f"[{label}] kernels / plain float32 from the plain version in float64 (max abs; "
+        f"largest entry): coordinates and the six gradients "
+        + ", ".join(f"{k:.2e} / {q:.2e} ({m:.2e})" for k, q, m in f64)
+        + f"; two launches bit-identical {same} | card alone: fwd {1e3 * ms[0]:.2f} us, bwd "
+        f"{1e3 * ms[1]:.2f} us (plain {1e3 * ms_p[0]:.1f} / {1e3 * ms_p[1]:.1f} us; bound "
+        f"{1e3 * bound[0][0]:.3f} / {1e3 * bound[1][0]:.3f} us, bytes); fwd + bwd with the "
+        f"host {1e3 * host[0]:.1f} us (plain {1e3 * host[1]:.1f} us)")
+    check(all(k <= 3 * q + 1e-6 * m for k, q, m in f64),
+          f"{label}: the kernels part from float64 more than 3x the plain version: {f64}")
+    check(same, f"{label}: two launches differ")
+    return dict(fwd=(f64[0][0], ms[0], ms_p[0], bound[0]),
+                bwd=(max(e[0] for e in f64[1:]), ms[1], ms_p[1], bound[1]), host=host)
+
+
+def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int, one_way: int = 2,
+              sidechain: int = 0) -> tuple:
     """``train()`` with the launch counts set to 0 just before and read just
     after: the sigmoid kernels must launch ``per_step`` times a step each,
     the one-way kernels ``one_way`` times a step each (a chain's two
     halves, for each protein of a multimer; none where the sidechain
-    backmap builds the chain), the fused train kernels never. Returns
-    (emap, history, counts, s)."""
+    backmap builds the chain), the sidechain kernels ``sidechain`` times a
+    step each, the fused train kernels never. Returns (emap, history,
+    counts, s)."""
     emap = em.AngleDihedralCartesianEncoderMap(cvs, p)
     torch.cuda.synchronize()
     _build.launch_counts.clear()
@@ -1543,6 +1635,9 @@ def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int, one_way: int = 
     want = one_way * p.n_steps
     check(counts.get("one_way_fwd", 0) == want and counts.get("one_way_bwd", 0) == want,
           f"{tag}: one-way kernels launched {counts}, expected {want} each")
+    want = sidechain * p.n_steps
+    check(counts.get("sidechain_fwd", 0) == want and counts.get("sidechain_bwd", 0) == want,
+          f"{tag}: sidechain kernels launched {counts}, expected {want} each")
     check(counts.get("fused_train", 0) == 0 and counts.get("fused_train_cluster", 0) == 0,
           f"{tag}: a fused train kernel ran")
     check(bool(np.isfinite(hist["loss"]).all()), f"{tag}: non-finite loss")
@@ -1806,7 +1901,7 @@ def phase_adc_sidechains(em, fs, _build, run_dir: Path) -> dict:
     cvs = sidechain_cvs(4096, seed=3)
     p = adc_params(em, run_dir, 100, 50, reconstruct_sidechains=True,
                    sidechain_info=TRP_CAGE_SIDECHAIN_INFO)
-    emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2, one_way=0)
+    emap, hist, counts, wall = adc_train(em, _build, cvs, p, tag, 2, one_way=0, sidechain=1)
     spec = emap.sidechain_spec
     check(spec.n_atoms == 114 and spec.n_sidechain_atoms == 54,
           f"{tag}: the spec has {spec.n_atoms} atoms")
@@ -1866,7 +1961,7 @@ def phase_adc_sidechains(em, fs, _build, run_dir: Path) -> dict:
         f"{ms_b:.4f} ms; sigmoid kernels fwd+bwd "
         + ", ".join(f"D={D} {v['fwd'][1] + v['bwd'][1]:.4f} ms" for (D, _), v in kern.items())
         + f"; step {ms:.3f} ms, device busy {busy:.3f} ms")
-    return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
+    return dict(counts=counts, kernels=kern, ms=ms, wall=wall, sidechain=hold_sidechain())
 
 
 def phase_adc_multimer(em, fs, _build, run_dir: Path) -> dict:
@@ -2301,7 +2396,7 @@ def phase_analysis(em, fs, _build, run_dir: Path, feat: dict) -> dict:
     trp.load_CVs("full", ensemble=True)
     p = adc_params(em, run_dir / "sc", 50, 50, reconstruct_sidechains=True)
     emap, hist, counts, wall = adc_train(em, _build, trp, p, f"{tag} sidechains", 2,
-                                         one_way=0)
+                                         one_way=0, sidechain=1)
     check(p.sidechain_info == sc_top.sidechain_info(),
           f"{tag}: sidechain_info {p.sidechain_info} is not the topology's")
     z = emap.encode()[:8]
@@ -3359,6 +3454,18 @@ def main() -> int:
             source="encodermap_tpu_torch/csrc/backmap_one_way.cu",
             replaces="none: encodermap_tpu/ops/backmap.py:353 _one_way, plain jnp",
             launches=sum(leg["counts"].get(count, 0) for leg in adc_legs),
+            max_abs_err=err, ms=ms, plain_ms=ms_p,
+            bound_ms=b[0], bound_by=b[1], library_ms=None))
+    # the sidechain kernels at trp-cage, B=256, the sidechain cell's shape
+    side = next(leg["sidechain"] for leg in adc_legs if "sidechain" in leg)
+    for name in ("sidechain_fwd", "sidechain_bwd"):
+        err, ms, ms_p, b = side[name[10:]]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="encodermap_tpu_torch/csrc/backmap_sidechains.cu",
+            replaces="none: encodermap_tpu/ops/backmap_sidechains.py backmap_sidechains_fast, "
+                     "plain jnp",
+            launches=sum(leg.get("counts", {}).get(name, 0) for leg in adc_legs),
             max_abs_err=err, ms=ms, plain_ms=ms_p,
             bound_ms=b[0], bound_by=b[1], library_ms=None))
     print(json.dumps({"kernels": kernels}))

@@ -22,24 +22,30 @@ reference's ``BackMapLayerWithSidechains``, ``models/layers.py:219-902``):
   telescopes into cumulative quaternion products of rotations about fixed
   in-plane axes: one scan over the backbone, one over every branch at once.
   The JAX package's form takes every dihedral as angles in (0, pi) give it
-  (a recorded divergence).
+  (a recorded divergence). CUDA tensors go through a hand-written kernel
+  each way (``csrc/backmap_sidechains.cu``, launch counters
+  ``sidechain_fwd`` and ``sidechain_bwd``), CPU tensors through the plain
+  version ``_backmap_sidechains_fast_plain``.
 * :func:`backmap_sidechains_train` is the fast form as the training step
   calls it: with the spans on (``misc/profiling.py``) it counts its rows
   (counter ``sidechain_backmap``) and runs its backward under the span
   ``adc.backmap_backward``; with them off it is the fast form.
 
-PyTorch has no ``associative_scan``: both scans run through
-``ops/backmap.py``'s doubling scan (``_cumulative_quats``, ``ceil(log2 n)``
-rounds, the earlier product on the left as in the JAX scan). Its layout is
-component-first, so quaternions here are ``(4, B, ...)`` and vectors
-``(3, B, ...)`` with the scanned axis last: the branch scan runs on
-``(4, B, n_branches, max_len)`` as it stands. Gradients come from autograd
-through the scans (the JAX package differentiates its scans too; there is
-no custom VJP).
+PyTorch has no ``associative_scan``: in the plain version both scans run
+through ``ops/backmap.py``'s doubling scan (``_cumulative_quats``,
+``ceil(log2 n)`` rounds, the earlier product on the left as in the JAX
+scan). Its layout is component-first, so quaternions here are ``(4, B,
+...)`` and vectors ``(3, B, ...)`` with the scanned axis last: the branch
+scan runs on ``(4, B, n_branches, max_len)`` as it stands. Its gradients
+come from autograd through the scans (the JAX package differentiates its
+scans too; there is no custom VJP); the kernels' backward is the adjoint
+derived by hand (``_SidechainBackmap``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from math import pi
 from typing import NamedTuple, Optional
 
@@ -52,6 +58,8 @@ from .backmap import _cumulative_quats, _quat_compose, _quat_rotate
 
 __all__ = ["SidechainBackmapSpec", "backmap_sidechains", "backmap_sidechains_fast",
            "backmap_sidechains_train", "make_spec"]
+
+_LIB = "backmap_sidechains"
 
 
 class SidechainBackmapSpec(NamedTuple):
@@ -346,9 +354,38 @@ def _identity(shape: tuple, like: torch.Tensor) -> torch.Tensor:
 _TABLES: dict = {}
 
 
+def _bond_csr(keys: np.ndarray, n_bonds: int) -> tuple[np.ndarray, np.ndarray]:
+    """Offsets (``n_bonds + 1``) and branch indices, in ascending order
+    within a bond, of the branches keyed to each backbone bond."""
+    order = np.argsort(keys, kind="stable")
+    return np.searchsorted(keys[order], np.arange(n_bonds + 1)), order
+
+
+def _kernel_table(nb: int, branches: np.ndarray, lens: np.ndarray,
+                  thresholds: np.ndarray) -> np.ndarray:
+    """The kernels' int32 table (``csrc/backmap_sidechains.cu``'s
+    ``Args::tab``): a row a branch (its CA atom, the index of the central
+    rotation it rides on or -1, its length, its first side atom, its first
+    side dihedral), then the branches of each backbone bond as two CSR
+    tables: by the bond into their CA (``ca - 1``) and by the bond whose
+    rotation they ride on (``threshold``), each offsets (``nb``) then
+    indices (padded to one a branch)."""
+    n_br = len(branches)
+    ca = branches * 3 + 1
+    thr = np.where(thresholds > 0, thresholds - 1, -1)
+    rows = np.stack([ca, thr, lens, np.cumsum(lens) - lens,
+                     np.cumsum(lens - 1) - (lens - 1)], axis=1).reshape(-1)
+    ca_ptr, ca_ids = _bond_csr(ca - 1, nb - 1)
+    on = np.where(thr >= 0)[0]
+    thr_ptr, thr_ids = _bond_csr(thr[on] + 1, nb - 1)
+    thr_ids = np.pad(on[thr_ids], (0, n_br - len(on)))
+    return np.concatenate([rows, ca_ptr, ca_ids, thr_ptr, thr_ids]).astype(np.int32)
+
+
 def _fast_tables(spec: SidechainBackmapSpec, device: torch.device) -> dict:
     """The fast version's index tables on ``device``, built once per spec
-    (keyed by its branch lengths and central dihedral masks) and device."""
+    (keyed by its branch lengths and central dihedral masks) and device:
+    the plain version's, and the kernels' (``kernel``, :func:`_kernel_table`)."""
     v = _side_atoms_per_res(spec)
     cmasks = np.asarray(spec.dihedral_static_masks[:spec.n_central_dihedrals])
     key = (v.tobytes(), cmasks.tobytes(), cmasks.shape, str(device))
@@ -359,8 +396,10 @@ def _fast_tables(spec: SidechainBackmapSpec, device: torch.device) -> dict:
     branches = np.where(v > 0)[0]  # residues (0-based) with a branch
     lens = v[branches]
     if not len(branches):
+        none = np.zeros(0, np.int64)
         _TABLES[key] = tables = dict(n_br=0, bond_quat_idx=torch.as_tensor(
-            np.minimum(np.arange(2, nb) - 2, max(n_cdi - 1, 0)), device=device))
+            np.minimum(np.arange(2, nb) - 2, max(n_cdi - 1, 0)), device=device),
+            kernel=torch.as_tensor(_kernel_table(nb, none, none, none), device=device))
         return tables
     n_br, max_len = len(branches), int(lens.max())
     # ragged branch atoms -> (n_br, max_len), padded; and their dihedrals
@@ -393,19 +432,22 @@ def _fast_tables(spec: SidechainBackmapSpec, device: torch.device) -> dict:
         bond_quat_idx=t(np.minimum(np.arange(2, nb) - 2, max(n_cdi - 1, 0))),
         thr_idx=t(np.maximum(thresholds - 1, 0)), thr_on=t(thresholds > 0),
         sdi_cols=t(sdi_cols), sdi_mask=t(sdi_mask), first_step=t(first_step), bidx=t(bidx),
-        jidx=t(jidx))
+        jidx=t(jidx), kernel=t(_kernel_table(nb, branches, lens, thresholds)))
     _TABLES[key] = tables
     return tables
 
 
-def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch.Tensor,
-                            central_angles: torch.Tensor,
-                            central_dihedrals: torch.Tensor,
-                            side_distances: torch.Tensor, side_angles: torch.Tensor,
-                            side_dihedrals: torch.Tensor) -> torch.Tensor:
+def _backmap_sidechains_fast_plain(spec: SidechainBackmapSpec,
+                                   central_distances: torch.Tensor,
+                                   central_angles: torch.Tensor,
+                                   central_dihedrals: torch.Tensor,
+                                   side_distances: torch.Tensor, side_angles: torch.Tensor,
+                                   side_dihedrals: torch.Tensor) -> torch.Tensor:
     """Log-depth sidechain backmapping: the semantics of
     :func:`backmap_sidechains` (with ``angle_clip=None``) from cumsums and
-    two cumulative quaternion products. Same arguments and result."""
+    two cumulative quaternion products. Same arguments and result. The
+    plain version of the kernels, which :func:`backmap_sidechains_fast`
+    takes for CPU tensors."""
     B = central_distances.shape[0]
     dtype, device = central_distances.dtype, central_distances.device
     nb = 3 * spec.n_residues
@@ -480,6 +522,156 @@ def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch
     return torch.cat([bb_pos, side_pos], dim=-1).permute(1, 2, 0).contiguous()
 
 
+# ------------------------------------------------------------ the kernels
+@functools.cache
+def _library():
+    """The sidechain kernels' library, declared and loaded on first use
+    (``_build`` is imported here, not at the top: it imports ``misc``,
+    whose ``__init__`` imports the ops)."""
+    from . import _build
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _build.register(_LIB, [
+        ("em_sidechain_fwd", [I, P, P, P, I, I, I, I, P, P, P, P]),
+        ("em_sidechain_bwd", [I, P, P, P, I, I, I, I, P, P, P, L, L, L, P, P, P]),
+    ])
+    return _build.load_library(_LIB)
+
+
+def _kernel_route(inputs) -> bool:
+    """Whether :func:`backmap_sidechains_fast` launches the kernels: True
+    for CUDA tensors of one device and of float32 or float64, False for CPU
+    tensors; anything else raises."""
+    devices = {x.device for x in inputs}
+    if len(devices) != 1:
+        raise ValueError(f"the sidechain backmap's inputs lie on {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    dtypes = {x.dtype for x in inputs}
+    if len(dtypes) != 1 or dtypes & {torch.float32, torch.float64} != dtypes:
+        raise TypeError(f"the sidechain kernels take float32 or float64 tensors of one "
+                        f"type, got {sorted(map(str, dtypes))}")
+    return True
+
+
+def _pointers(tensors) -> tuple:
+    """ctypes arrays of the tensors' data pointers and of their (row,
+    column) strides."""
+    ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
+    strides = (ctypes.c_longlong * (2 * len(tensors)))(
+        *(s for x in tensors for s in x.stride()))
+    return ptrs, strides
+
+
+def _sidechain_fwd(spec: SidechainBackmapSpec, inputs) -> tuple:
+    """The forward kernel: the coordinates ``(B, nb + n_side, 3)`` and each
+    bond's rotation ``(B, nb - 1 + n_side, 4)`` and heading ``(B, nb - 1 +
+    n_side)``, which :func:`_sidechain_bwd` takes."""
+    from . import _build
+
+    lib = _library()
+    x = inputs[0]
+    B, nb, n_side = x.shape[0], 3 * spec.n_residues, spec.n_sidechain_atoms
+    tb = _fast_tables(spec, x.device)
+    widths = (nb - 1, nb - 2, nb - 3, n_side, n_side, n_side - tb["n_br"])
+    if any(t.shape != (B, w) for t, w in zip(inputs, widths)):
+        raise ValueError(f"the sidechain backmap takes (B, n) inputs of widths {widths}, "
+                         f"got {[tuple(t.shape) for t in inputs]}")
+    out = torch.empty((B, nb + n_side, 3), dtype=x.dtype, device=x.device)
+    quat = torch.empty((B, nb - 1 + n_side, 4), dtype=x.dtype, device=x.device)
+    head = torch.empty((B, nb - 1 + n_side), dtype=x.dtype, device=x.device)
+    ptrs, strides = _pointers(inputs)
+    err = lib.em_sidechain_fwd(int(x.dtype == torch.float64), ptrs, strides,
+                               tb["kernel"].data_ptr(), B, nb, tb["n_br"], n_side,
+                               out.data_ptr(), quat.data_ptr(), head.data_ptr(),
+                               _build.stream_ptr())
+    _build.launch_counts["sidechain_fwd"] += 1
+    _build.check_cuda(lib, err, "em_sidechain_fwd")
+    return out, quat, head
+
+
+def _sidechain_bwd(spec: SidechainBackmapSpec, inputs, quat: torch.Tensor,
+                   head: torch.Tensor, grad: torch.Tensor) -> list:
+    """The backward kernel: the gradients of the six inputs (contiguous)
+    from the coordinates' cotangent ``grad`` (any strides) and what
+    :func:`_sidechain_fwd` returned."""
+    from . import _build
+
+    x = inputs[0]
+    B, nb, n_side = x.shape[0], 3 * spec.n_residues, spec.n_sidechain_atoms
+    if grad.dtype != x.dtype or grad.device != x.device or grad.shape != (B, nb + n_side, 3):
+        raise TypeError(f"a ({B}, {nb + n_side}, 3) {x.dtype} cotangent on {x.device} "
+                        f"expected, got {tuple(grad.shape)} {grad.dtype} on {grad.device}")
+    tb = _fast_tables(spec, x.device)
+    lib = _library()
+    grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in inputs]
+    part = torch.empty((B, tb["n_br"], 7), dtype=x.dtype, device=x.device)
+    ptrs, strides = _pointers(inputs)
+    outs = (ctypes.c_void_p * len(grads))(*(t.data_ptr() for t in grads))
+    err = lib.em_sidechain_bwd(int(x.dtype == torch.float64), ptrs, strides,
+                               tb["kernel"].data_ptr(), B, nb, tb["n_br"], n_side,
+                               quat.data_ptr(), head.data_ptr(), grad.data_ptr(),
+                               *grad.stride(), part.data_ptr(), outs, _build.stream_ptr())
+    _build.launch_counts["sidechain_bwd"] += 1
+    _build.check_cuda(lib, err, "em_sidechain_bwd")
+    return grads
+
+
+class _SidechainBackmap(torch.autograd.Function):
+    """:func:`backmap_sidechains_fast` for CUDA tensors: one kernel each way
+    (``csrc/backmap_sidechains.cu``; launch counters ``sidechain_fwd`` and
+    ``sidechain_bwd``). The forward saves each bond's rotation and heading
+    (5 values a bond: 2.3 kB a frame in float32 on trp-cage); the backward
+    is the hand-derived adjoint of the fast form (the kernels' source
+    derives it), takes the gradients of all six inputs, and runs under the
+    span ``adc.backmap_backward``. With ``count`` (the training call with
+    the spans on) it adds its rows to the counter ``sidechain_backmap``.
+    Its backward is not differentiated again."""
+
+    @staticmethod
+    def forward(ctx, spec, count, *inputs):
+        out, quat, head = _sidechain_fwd(spec, inputs)
+        ctx.spec, ctx.count = spec, count
+        ctx.save_for_backward(*inputs, quat, head)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        *inputs, quat, head = ctx.saved_tensors
+        with span("adc.backmap_backward"):
+            grads = _sidechain_bwd(ctx.spec, inputs, quat, head, grad)
+        if ctx.count:
+            count = counter("sidechain_backmap")
+            count["bwd"] += 1
+            count["rows_bwd"] += grad.shape[0]
+        return (None, None) + tuple(g if need else None
+                                    for g, need in zip(grads, ctx.needs_input_grad[2:]))
+
+
+def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch.Tensor,
+                            central_angles: torch.Tensor,
+                            central_dihedrals: torch.Tensor,
+                            side_distances: torch.Tensor, side_angles: torch.Tensor,
+                            side_dihedrals: torch.Tensor) -> torch.Tensor:
+    """Log-depth sidechain backmapping: the semantics of
+    :func:`backmap_sidechains` (with ``angle_clip=None``) from cumsums and
+    two cumulative quaternion products. Same arguments and result.
+
+    CUDA tensors (float32 or float64, of one device) go through one
+    hand-written kernel each way (``_SidechainBackmap``); CPU tensors
+    through the plain version ``_backmap_sidechains_fast_plain``, and the
+    kernels' library is never loaded; any other device or type raises."""
+    inputs = (central_distances, central_angles, central_dihedrals, side_distances,
+              side_angles, side_dihedrals)
+    if _kernel_route(inputs):
+        return _SidechainBackmap.apply(spec, False, *inputs)
+    return _backmap_sidechains_fast_plain(spec, *inputs)
+
+
 # ------------------------------------------------------------ training call
 class _SpannedBackmap(torch.autograd.Function):
     """:func:`backmap_sidechains_fast` with its backward under the span
@@ -521,14 +713,18 @@ def backmap_sidechains_train(spec: SidechainBackmapSpec, *inputs: torch.Tensor
     training step calls it. With the spans off it is the fast form. With
     them on, the counter ``sidechain_backmap`` counts the calls and rows
     backmapped forward (``fwd``, ``rows_fwd``) and backward (``bwd``,
-    ``rows_bwd``), and where a gradient is taken the backward's operations
-    run under the span ``adc.backmap_backward``, with gradients bit for bit
-    those of autograd through the fast form."""
+    ``rows_bwd``), and where a gradient is taken the backward runs under
+    the span ``adc.backmap_backward``: on the card the same kernels as with
+    the spans off (whose backward always runs under that span), on the CPU
+    ``_SpannedBackmap``, with gradients bit for bit those of autograd
+    through the fast form."""
     if not spans_enabled():
         return backmap_sidechains_fast(spec, *inputs)
     count = counter("sidechain_backmap")
     count["fwd"] += 1
     count["rows_fwd"] += inputs[0].shape[0]
+    if _kernel_route(inputs):
+        return _SidechainBackmap.apply(spec, True, *inputs)
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
         return _SpannedBackmap.apply(spec, *inputs)
     return backmap_sidechains_fast(spec, *inputs)

@@ -26,7 +26,11 @@ def measured_fast(spec, cd, ca, cdi, sd, sa, sdi):
     """``J.backmap_sidechains_fast`` with the sweep's current dihedrals: pi
     across a bond whose two ends turn the plane chain different ways (by
     the sign of the turn's sine: a central angle's own, a branch's first
-    side angle's, minus a later side angle's), else 0."""
+    side angle's, minus a later side angle's), else 0. Under
+    ``jax.enable_x64`` it also gives back the difference between pi and
+    the float32 pi that the JAX package's fast form takes from each
+    branch's first side dihedral, so that its float64 result is the
+    sweep's to float64 rounding."""
     t = jnp.sin(ca)
     cdi = cdi - jnp.pi * (t[:, :-1] * t[:, 1:] < 0)
     ends, first = [], []
@@ -38,9 +42,12 @@ def measured_fast(spec, cd, ca, cdi, sd, sa, sdi):
         col += int(v)
     if ends:
         a, b = (np.asarray(x) for x in zip(*ends))
-        first = np.asarray(first, np.float32)
+        first = np.asarray(first, np.dtype(sa.dtype))
         trans = (2 * first - 1) * jnp.sin(sa[:, a]) * -jnp.sin(sa[:, b]) < 0
-        sdi = sdi + jnp.pi * (first - trans)
+        shift = jnp.pi * (first - trans)
+        if sa.dtype == jnp.float64:
+            shift = shift + first * (float(np.float32(np.pi)) - np.pi)
+        sdi = sdi + shift
     return _FAST(spec, cd, ca, cdi, sd, sa, sdi)
 
 

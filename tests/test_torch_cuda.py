@@ -27,7 +27,15 @@ gradient of rounding noise into a full step of either sign, losses 1e-4
 and all but 1 % of the weights 1e-4). The same holds for the sidechain-
 reconstruction and the multimer modes at trp-cage scale. The fast
 sidechain backmap (trp-cage, 114 atoms) on the card stays within 3x the
-CPU's own float32 distance from float64, forward and backward.
+CPU's own float32 distance from float64, forward and backward. Its kernels
+(``csrc/backmap_sidechains.cu``) equal the sequential sweep in float64 to
+1e-9 nm and autograd through the plain version to 1e-10 of the largest
+gradient, on decoded angles of either sign; hold the 3x rule in float32 at
+B=1 to 1000 and on specs of 36 branches, of none and of 8-atom branches;
+meet the JAX package's output and VJP stored in ``data/sidechain_jax.npz``
+(1e-9 in float64, within 3x JAX's float32 distance from float64 in float32);
+give the same bits twice and from the decoder's strided slices; and run
+their backward under the span ``adc.backmap_backward``, spans on or off.
 
 The data layer: featurization of a synthetic peptide on the card against
 the CPU (distances and Cartesians 1e-6 nm, angles and dihedrals 1e-5 rad,
@@ -58,6 +66,7 @@ plain float32 step's distance from a float64 run of it
 steps at cube B=256, seeds 0 and 1, under ``chip_smoke.hold_f64``'s
 gate."""
 
+import contextlib
 import math
 
 import numpy as np
@@ -647,6 +656,238 @@ def test_sidechain_backmap_on_card_matches_cpu(cuda):
     for a, b, r in zip(gpu, cpu, ref):
         scale = float(r.abs().max())
         assert float((a - r).abs().max()) <= 3 * float((b - r).abs().max()) + 1e-6 * scale
+
+
+SIDECHAIN_SPECS = {
+    "trp-cage": None,  # chip_smoke.TRP_CAGE_SIDECHAIN_INFO: 17 branches, up to 6 atoms
+    "forty": {r: (0 if r % 10 == 5 else 1 + r % 4) for r in range(1, 41)},  # 36 branches
+    "none": {1: 0, 2: 0, 3: 0},
+    "one-residue": {1: 3},
+    "long": {1: 5, 2: 0, 3: 7, 4: 2},  # branches of 6 and 8 atoms
+}
+
+
+def _sidechain_case(name, B, dtype, device, seed=0):
+    """A spec and its six inputs, decoded angles of either sign on (-pi, pi]
+    (as a fresh model gives them), and a cotangent of the coordinates."""
+    from chip_smoke import TRP_CAGE_SIDECHAIN_INFO
+    from encodermap_tpu_torch.ops.backmap_sidechains import make_spec
+
+    info = SIDECHAIN_SPECS[name] or TRP_CAGE_SIDECHAIN_INFO
+    spec = make_spec(info)
+    rng = np.random.default_rng(seed)
+    nb, ns = 3 * spec.n_residues, spec.n_sidechain_atoms
+    x = [rng.uniform(0.13, 0.155, (B, nb - 1)), rng.uniform(-np.pi, np.pi, (B, nb - 2)),
+         rng.uniform(-np.pi, np.pi, (B, nb - 3)), rng.uniform(0.13, 0.16, (B, ns)),
+         rng.uniform(-np.pi, np.pi, (B, ns)), rng.uniform(-np.pi, np.pi, (B, sum(info.values())))]
+    g = rng.normal(size=(B, spec.n_atoms, 3))
+    return spec, [torch.tensor(v, dtype=dtype, device=device) for v in x], \
+        torch.tensor(g, dtype=dtype, device=device)
+
+
+def _sidechain_run(fn, spec, x, g):
+    """The coordinates and the gradients of ``sum(out * g)`` with respect to
+    the six inputs (zeros for an input of width 0)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in x]
+    y = fn(spec, *leaves)
+    (y * g).sum().backward()
+    return [y.detach()] + [t.grad if t.grad is not None else torch.zeros_like(t)
+                           for t in leaves]
+
+
+@pytest.mark.parametrize("name", SIDECHAIN_SPECS)
+def test_sidechain_kernels_f64_equal_the_sequential_sweep(cuda, name):
+    """The kernels in float64, B=256, against the sequential sweep measured
+    exactly (``angle_clip=None``) on the CPU, to 1e-9 nm, on decoded angles
+    of either sign; their gradients against autograd through the plain
+    version on the CPU to 1e-10 of each one's largest entry."""
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.ops.backmap_sidechains import (
+        _backmap_sidechains_fast_plain,
+        backmap_sidechains,
+        backmap_sidechains_fast,
+    )
+
+    spec, x, g = _sidechain_case(name, 256, torch.float64, cuda)
+    before = {k: _build.launch_counts[k] for k in ("sidechain_fwd", "sidechain_bwd")}
+    got = _sidechain_run(backmap_sidechains_fast, spec, x, g)
+    assert {k: _build.launch_counts[k] - v for k, v in before.items()} == {
+        "sidechain_fwd": 1, "sidechain_bwd": 1}
+    cpu = [t.cpu() for t in x]
+    seq = backmap_sidechains(spec, *cpu, angle_clip=None)
+    assert float((got[0].cpu() - seq).abs().max()) <= 1e-9
+    want = _sidechain_run(_backmap_sidechains_fast_plain, spec, cpu, g.cpu())
+    for a, b in zip(got[1:], want[1:]):
+        assert a.shape == b.shape
+        if b.numel():  # an input of width 0 has no gradient to compare
+            assert float((a.cpu() - b).abs().max()) <= 1e-10 * max(float(b.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("name,B", [("trp-cage", 1), ("trp-cage", 33), ("trp-cage", 256),
+                                    ("trp-cage", 1000), ("forty", 33), ("none", 33),
+                                    ("long", 33)])
+def test_sidechain_kernels_f32_within_3x_of_plain_from_float64(cuda, name, B):
+    """The coordinates and the gradients of all six inputs, float32:
+    err(kernels, f64) <= 3 err(plain f32 on the CPU, f64) + 1e-6 of the
+    largest entry, the rule of ``test_sidechain_backmap_on_card_matches_cpu``,
+    with the plain version in float64 on the CPU as the f64 side."""
+    from encodermap_tpu_torch.ops.backmap_sidechains import (
+        _backmap_sidechains_fast_plain,
+        backmap_sidechains_fast,
+    )
+
+    spec, x64, g64 = _sidechain_case(name, B, torch.float64, "cpu")
+    ref = _sidechain_run(_backmap_sidechains_fast_plain, spec, x64, g64)
+    plain = _sidechain_run(_backmap_sidechains_fast_plain, spec, [t.float() for t in x64],
+                           g64.float())
+    got = _sidechain_run(backmap_sidechains_fast, spec,
+                         [t.to(cuda, torch.float32) for t in x64], g64.to(cuda, torch.float32))
+    for k, p, r in zip(got, plain, ref):
+        assert k.dtype == torch.float32 and k.shape == r.shape
+        if not r.numel():  # an input of width 0 has no gradient to compare
+            continue
+        err_k = float((k.cpu().double() - r).abs().max())
+        err_p = float((p.double() - r).abs().max())
+        assert err_k <= 3 * err_p + 1e-6 * float(r.abs().max()), (err_k, err_p)
+
+
+@pytest.mark.parametrize("name", ["trp-cage", "forty", "long"])
+def test_sidechain_kernels_against_the_jax_package(cuda, name):
+    """The kernels' coordinates and the gradients of all six inputs on the
+    inputs of ``data/sidechain_jax.npz`` (B=32, decoded angles of either
+    sign), against the JAX package's fast form with the sweep's current
+    dihedrals and its VJP stored there (``tests/test_torch_sidechains.py``
+    writes and rechecks the file): in float64 to 1e-9 nm and 1e-9 of each
+    gradient's largest entry; in float32 err(kernels, JAX f64) <= 3
+    err(JAX f32, JAX f64), largest absolute error."""
+    from pathlib import Path
+
+    from chip_smoke import TRP_CAGE_SIDECHAIN_INFO
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_fast, make_spec
+
+    stored = np.load(Path(__file__).parent / "data" / "sidechain_jax.npz")
+    spec = make_spec(SIDECHAIN_SPECS[name] or TRP_CAGE_SIDECHAIN_INFO)
+    x = [torch.from_numpy(stored[f"{name}_{k}"]) for k in ("cd", "ca", "cdi", "sd", "sa", "sdi")]
+    g = torch.from_numpy(stored[f"{name}_g"])
+    keys = ("out", "d_cd", "d_ca", "d_cdi", "d_sd", "d_sa", "d_sdi")
+    for dtype in (torch.float64, torch.float32):
+        got = _sidechain_run(backmap_sidechains_fast, spec, [t.to(cuda, dtype) for t in x],
+                             g.to(cuda, dtype))
+        for k, key in zip(got, keys):
+            ref = torch.from_numpy(stored[f"{name}_{key}64"])
+            err = float((k.cpu().double() - ref).abs().max())
+            if dtype == torch.float64:
+                assert err <= 1e-9 * max(float(ref.abs().max()), 1.0), (key, err)
+            else:
+                err_j = float((torch.from_numpy(stored[f"{name}_{key}32"]).double() - ref)
+                              .abs().max())
+                assert err <= 3 * err_j, (key, err, err_j)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_sidechain_kernels_are_bit_reproducible(cuda, dtype):
+    """Two runs of both kernels (40 residues, 36 branches over the warp's
+    lanes, B=1000) give the same bits: no atomics."""
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_fast
+
+    spec, x, g = _sidechain_case("forty", 1000, dtype, cuda)
+    first = _sidechain_run(backmap_sidechains_fast, spec, x, g)
+    second = _sidechain_run(backmap_sidechains_fast, spec, x, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_sidechain_kernels_take_strided_views(cuda):
+    """The decoder hands the backmap column slices of one output
+    (``torch.split``) and ``sum()`` an expanded cotangent (stride 0): the
+    same bits as from contiguous copies."""
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_fast
+
+    spec, x, _ = _sidechain_case("trp-cage", 256, torch.float32, cuda)
+    widths = [t.shape[1] for t in x]
+    slices = torch.split(torch.cat(x, dim=1), widths, dim=1)
+    assert not any(t.is_contiguous() for t in slices[1:])
+    outs = []
+    for inputs in (x, slices):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        y = backmap_sidechains_fast(spec, *leaves)
+        y.sum().backward()
+        outs.append([y.detach()] + [t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_sidechain_training_call_spans_and_counter_on_card(cuda):
+    """With the spans on, ``backmap_sidechains_train`` launches the same
+    kernels as with them off (same bits), its backward kernel's launch lies
+    inside the span ``adc.backmap_backward``, and the counter
+    ``sidechain_backmap`` counts one call and B rows each way."""
+    from encodermap_tpu_torch.misc import profiling as P
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_train
+
+    spec, x, g = _sidechain_case("trp-cage", 256, torch.float32, cuda)
+    runs = {}
+    for spanned in (False, True):
+        counts = dict(_build.launch_counts)
+        rows = dict(P.counter("sidechain_backmap"))
+        with P.record_spans() if spanned else contextlib.nullcontext():
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                runs[spanned] = _sidechain_run(backmap_sidechains_train, spec, x, g)
+                torch.cuda.synchronize()
+        moved = {k: v - counts.get(k, 0) for k, v in _build.launch_counts.items()
+                 if v != counts.get(k, 0)}
+        assert moved == {"sidechain_fwd": 1, "sidechain_bwd": 1}
+        counted = {k: v - rows.get(k, 0) for k, v in P.counter("sidechain_backmap").items()
+                   if v != rows.get(k, 0)}
+        assert counted == ({"fwd": 1, "rows_fwd": 256, "bwd": 1, "rows_bwd": 256}
+                           if spanned else {})
+        if spanned:
+            events = prof.events()
+            launch = {e.id: e.time_range.start for e in events
+                      if e.device_type == torch.autograd.DeviceType.CPU
+                      and e.name.startswith("cu")}
+            bwd = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "sidechain_bwd_kernel" in e.name]
+            span_ranges = [e.time_range for e in events if e.name == "adc.backmap_backward"
+                           and e.device_type == torch.autograd.DeviceType.CPU]
+            assert len(bwd) == 1 and len(span_ranges) == 1
+            assert span_ranges[0].start <= launch[bwd[0].id] <= span_ranges[0].end
+    assert all(torch.equal(a, b) for a, b in zip(runs[False], runs[True]))
+
+
+def test_sidechain_wrappers_refuse_what_they_do_not_take(cuda):
+    """Half precision, two types, two devices and wrong widths raise."""
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_fast
+
+    spec, x, _ = _sidechain_case("trp-cage", 4, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        backmap_sidechains_fast(spec, *(t.half() for t in x))
+    with pytest.raises(TypeError):
+        backmap_sidechains_fast(spec, *x[:5], x[5].double())
+    with pytest.raises(ValueError):
+        backmap_sidechains_fast(spec, *x[:5], x[5].cpu())
+    with pytest.raises(ValueError):
+        backmap_sidechains_fast(spec, *x[:5], x[5][:, 1:])
+
+
+def test_reconstruct_chunk_launches_sidechain_kernels(cuda, tmp_path):
+    """A three-step training chunk of the sidechain-reconstruction mode at
+    trp-cage scale goes through the sidechain kernels once a step each way,
+    and through no one-way kernel."""
+    import encodermap_tpu_torch as em
+    from chip_smoke import TRP_CAGE_SIDECHAIN_INFO, sidechain_cvs
+    from encodermap_tpu_torch.ops import _build
+
+    p = em.ADCParameters(main_path=str(tmp_path), n_neurons=[128, 128, 2], batch_size=256,
+                         n_steps=3, steps_per_scan=3, seed=0, reconstruct_sidechains=True,
+                         sidechain_info=TRP_CAGE_SIDECHAIN_INFO, use_backbone_angles=True)
+    emap = em.AngleDihedralCartesianEncoderMap(sidechain_cvs(1024), p, device=cuda)
+    names = ("sidechain_fwd", "sidechain_bwd", "one_way_fwd", "one_way_bwd")
+    before = {k: _build.launch_counts[k] for k in names}
+    emap.train()
+    torch.cuda.synchronize()
+    assert {k: _build.launch_counts[k] - v for k, v in before.items()} == {
+        "sidechain_fwd": 3, "sidechain_bwd": 3, "one_way_fwd": 0, "one_way_bwd": 0}
 
 
 def test_reconstruct_steps_on_card_match_cpu(cuda, tmp_path):

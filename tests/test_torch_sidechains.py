@@ -37,6 +37,8 @@ Tolerances and why:
   shifted targets (``tests/jax_sidechains.py``).
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,7 +54,7 @@ from encodermap_tpu.train.metrics import ADCRMSDMetric as RmsdJ
 from encodermap_tpu_torch.convert import params_to_numpy
 from encodermap_tpu_torch.misc import profiling as P
 from encodermap_tpu_torch.train.metrics import ADCRMSDMetric as RmsdT
-from tests.jax_sidechains import measured
+from tests.jax_sidechains import measured, measured_fast
 
 torch.set_num_threads(1)
 
@@ -250,6 +252,99 @@ def test_fast_float32_gradient_rule():
         err_port = np.abs(port.grad.numpy() - ref).max()
         err_jax = np.abs(np.asarray(jx) - ref).max()
         assert err_port <= 3 * err_jax, (err_port, err_jax)
+
+
+SIDECHAIN_JAX_FILE = Path(__file__).parent / "data" / "sidechain_jax.npz"
+#: trp-cage; 40 residues with 36 branches (more than a warp's lanes);
+#: branches of 6 and 8 atoms
+SIDECHAIN_JAX_SPECS = {
+    "trp-cage": TRP_CAGE_SIDECHAIN_INFO,
+    "forty": {r: (0 if r % 10 == 5 else 1 + r % 4) for r in range(1, 41)},
+    "long": {1: 5, 2: 0, 3: 7, 4: 2},
+}
+SIDECHAIN_INPUTS = ("cd", "ca", "cdi", "sd", "sa", "sdi")
+
+
+def _jax_fast_vjp(sj, x, g):
+    """``measured_fast``'s output and VJP, jitted (eager dispatch of its
+    scans takes minutes)."""
+    @jax.jit
+    def fn(x, g):
+        out, vjp = jax.vjp(lambda *a: measured_fast(sj, *a), *x)
+        return out, vjp(g)
+
+    return fn([jnp.asarray(v) for v in x], jnp.asarray(g))
+
+
+def sidechain_jax_reference(name, B=32):
+    """Float32 inputs with decoded angles of either sign, a cotangent ``g``
+    of the coordinates, and the JAX package's fast form with the sweep's
+    current dihedrals (``measured_fast``) and its VJP on them, in float32
+    (``out32``, ``d_<input>32``) and in float64 (``out64``, ``d_<input>64``),
+    as numpy."""
+    info = SIDECHAIN_JAX_SPECS[name]
+    x = _inputs(info, B=B, seed=11)
+    rng = np.random.default_rng(12)
+    x = [x[0], rng.uniform(-np.pi, np.pi, x[1].shape), x[2], x[3],
+         rng.uniform(-np.pi, np.pi, x[4].shape), x[5]]
+    sj = J.make_spec(info)
+    g = rng.normal(size=(B, sj.n_atoms, 3))
+    x, g = [v.astype(np.float32) for v in x], g.astype(np.float32)
+    stored = dict(zip(SIDECHAIN_INPUTS, x), g=g)
+    for bits, cast in ((32, np.float32), (64, np.float64)):
+        with jax.enable_x64(bits == 64):
+            out, grads = _jax_fast_vjp(sj, [v.astype(cast) for v in x], g.astype(cast))
+            assert out.dtype == cast
+            stored[f"out{bits}"] = np.asarray(out)
+            stored.update({f"d_{k}{bits}": np.asarray(d) for k, d in zip(SIDECHAIN_INPUTS, grads)})
+    return stored
+
+
+def write_sidechain_jax_file(path=SIDECHAIN_JAX_FILE):
+    np.savez_compressed(path, **{f"{name}_{k}": v for name in SIDECHAIN_JAX_SPECS
+                                 for k, v in sidechain_jax_reference(name).items()})
+
+
+@pytest.mark.parametrize("name", SIDECHAIN_JAX_SPECS)
+def test_sidechain_jax_file_holds_the_jax_packages_output(name):
+    """The stored inputs are the seed's, and the stored outputs are what
+    the JAX package gives on them: float64 to 1e-12 of each tensor's
+    largest entry, float32 to 1e-5 (XLA's CPU code may round otherwise on
+    another CPU)."""
+    stored = np.load(SIDECHAIN_JAX_FILE)
+    for k, v in sidechain_jax_reference(name).items():
+        got = stored[f"{name}_{k}"]
+        assert got.dtype == v.dtype and got.shape == v.shape, k
+        if k in SIDECHAIN_INPUTS + ("g",):
+            np.testing.assert_array_equal(got, v)
+        else:
+            tol = 1e-12 if v.dtype == np.float64 else 1e-5
+            np.testing.assert_allclose(got, v, rtol=0, atol=tol * max(np.abs(v).max(), 1.0))
+
+
+@pytest.mark.parametrize("name", SIDECHAIN_JAX_SPECS)
+def test_plain_version_against_the_sidechain_jax_file(name):
+    """The port's plain version on the stored inputs: in float64 the JAX
+    package's coordinates to 1e-12 nm and its VJP to 1e-12 of each
+    gradient's largest entry; in float32 err(plain f32, JAX f64) <= 3
+    err(JAX f32, JAX f64), the rule the card holds the kernels to against
+    this file (``tests/test_torch_cuda.py``)."""
+    stored = np.load(SIDECHAIN_JAX_FILE)
+    spec = T.make_spec(SIDECHAIN_JAX_SPECS[name])
+    keys = ["out"] + [f"d_{k}" for k in SIDECHAIN_INPUTS]
+    for dtype in (torch.float64, torch.float32):
+        xs = [torch.tensor(stored[f"{name}_{k}"], dtype=dtype, requires_grad=True)
+              for k in SIDECHAIN_INPUTS]
+        y = T._backmap_sidechains_fast_plain(spec, *xs)
+        (y * torch.tensor(stored[f"{name}_g"], dtype=dtype)).sum().backward()
+        for t, k in zip([y] + [v.grad for v in xs], keys):
+            ref = stored[f"{name}_{k}64"]
+            err = np.abs(t.detach().double().numpy() - ref).max()
+            if dtype == torch.float64:
+                assert err <= 1e-12 * max(np.abs(ref).max(), 1.0), (k, err)
+            else:
+                err_jax = np.abs(stored[f"{name}_{k}32"].astype(np.float64) - ref).max()
+                assert err <= 3 * err_jax, (k, err, err_jax)
 
 
 # ------------------------------------------------------------------ trainer
