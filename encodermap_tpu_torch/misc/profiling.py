@@ -9,158 +9,37 @@ and, for a CUDA device, the card's kernels and copies (CUPTI), and writes a
 gzipped Chrome trace ``<host>.<pid>.<ms>.pt.trace.json.gz`` into
 ``logdir``, which ui.perfetto.dev and TensorBoard's profile plugin open.
 
-**Spans.** The training path marks its layers with :func:`span`: inside
-``train()`` ``train.upload``, ``train.chunk``, ``train.fetch``,
-``train.log``, ``train.callback.<ClassName>`` and ``train.persist``; in the
-chunk trainer ``trainer.draw`` and ``trainer.launch`` (fused kernel) or
-``trainer.step`` (the general route, one a step); in a general-route step
-``step.forward``, ``step.backward``, ``step.optimizer`` and
-``step.metrics``; in the ADC's forward and losses ``adc.encode``,
-``adc.decode``, ``adc.backmap`` and ``adc.losses``, and in the sidechain
-backmap's backward (``reconstruct_sidechains=True``, under
-``step.backward``) ``adc.backmap_backward``. Spans are **off by default**,
-and then cost one flag check. Two ways to see them:
-
-- :func:`trace` and :func:`profile_steps` switch them on for their block:
-  each span is then a ``record_function`` range in the Chrome trace, on the
-  profiler's clock with the card's kernels, nested under its parent
-  (``trainer.step`` under ``train.chunk``; the chunk spans carry the
-  chunk's first step as their argument). Open the file in ui.perfetto.dev.
-- Without the profiler, :func:`record_spans` switches them on and
-  :func:`span_totals` reads, by span name, the count, the total seconds
-  and the self seconds (the total less the time of the spans nested in
-  it). Totals only grow; subtract two snapshots for a window::
-
-      from encodermap_tpu_torch.misc import profiling
-      with profiling.record_spans():
-          before = profiling.span_totals()
-          emap.train()
-          after = profiling.span_totals()
-      steps = after["trainer.step"].count - before["trainer.step"].count
-
-**Counters.** :func:`counter` returns a named ``collections.Counter`` of
-the process; :data:`launches` counts the port's kernel launches by kernel
-name (``ops/_build.py::launch_counts`` is the same object), and, while the
-spans are on, ``sidechain_backmap`` the sidechain backmap's calls and rows
-forward and backward (``ops/backmap_sidechains.py::backmap_sidechains_train``).
+The spans and counters (:func:`span`, :func:`record_spans`,
+:func:`spans_enabled`, :func:`span_totals`, :class:`SpanTotal`,
+:func:`counter`, :data:`launches` and the registry ``_counters``) live in
+``encodermap_tpu_torch/_tracing.py``, which documents them, and are
+re-exported here as the same objects.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import os
 import socket
-import threading
 import time
 from pathlib import Path
-from typing import Any, Iterator, NamedTuple, Optional, Union
+from typing import Any, Iterator, Optional, Union
 
 import torch
 
+from .._tracing import (  # noqa: F401  (re-exported; _counters for the benchmark)
+    SpanTotal,
+    _counters,
+    counter,
+    launches,
+    record_spans,
+    span,
+    span_totals,
+    spans_enabled,
+)
+
 __all__ = ["trace", "block_timer", "profile_steps", "span", "record_spans",
            "spans_enabled", "span_totals", "SpanTotal", "counter", "launches"]
-
-# ----------------------------------------------------------------- counters
-_counters: dict[str, collections.Counter] = {}
-
-
-def counter(name: str) -> collections.Counter:
-    """The process's counter ``name`` (created empty on first use)."""
-    return _counters.setdefault(name, collections.Counter())
-
-
-#: kernel launches by kernel name: each kernel wrapper adds one where it
-#: launches its kernel, so a run shows which kernels its path went through
-launches = counter("launches")
-
-# -------------------------------------------------------------------- spans
-_on = False
-_NULL = contextlib.nullcontext()
-_local = threading.local()
-_lock = threading.Lock()
-#: span name -> [count, total ns, self ns]
-_totals: dict[str, list] = {}
-
-
-class SpanTotal(NamedTuple):
-    """What the spans of one name took so far."""
-
-    count: int
-    total_s: float
-    self_s: float
-
-
-class _Span:
-    """One open span: its time goes to the running totals, its children's
-    time out of its self time, and while a profiler records it is also a
-    ``record_function`` range."""
-
-    __slots__ = ("name", "args", "t0", "child", "rf")
-
-    def __init__(self, name: str, args: Any) -> None:
-        self.name, self.args = name, args
-
-    def __enter__(self) -> "_Span":
-        self.child, self.rf = 0, None
-        if torch.autograd._profiler_enabled():
-            self.rf = torch.autograd.profiler.record_function(
-                self.name, None if self.args is None else str(self.args))
-            self.rf.__enter__()
-        stack = getattr(_local, "stack", None)
-        if stack is None:
-            stack = _local.stack = []
-        stack.append(self)
-        self.t0 = time.perf_counter_ns()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        dt = time.perf_counter_ns() - self.t0
-        stack = _local.stack
-        stack.pop()
-        if stack:
-            stack[-1].child += dt
-        with _lock:
-            tot = _totals.setdefault(self.name, [0, 0, 0])
-            tot[0] += 1
-            tot[1] += dt
-            tot[2] += dt - self.child
-        if self.rf is not None:
-            self.rf.__exit__(*exc)
-
-
-def span(name: Optional[str], args: Any = None):
-    """Context manager marking a layer of the training path as ``name``
-    (see the module docstring). Off, it returns a shared null context and
-    records nothing; ``name=None`` also records nothing. ``args`` (e.g. the
-    chunk's first step) becomes the profiler range's argument, as a string
-    made only while a profiler records."""
-    if not _on or name is None:
-        return _NULL
-    return _Span(name, args)
-
-
-def spans_enabled() -> bool:
-    """Whether :func:`span` records."""
-    return _on
-
-
-@contextlib.contextmanager
-def record_spans() -> Iterator[None]:
-    """Context manager: spans record inside the block (nested blocks keep
-    them on until the outermost ends)."""
-    global _on
-    was, _on = _on, True
-    try:
-        yield
-    finally:
-        _on = was
-
-
-def span_totals() -> dict[str, SpanTotal]:
-    """A snapshot of every span name's :class:`SpanTotal` so far."""
-    with _lock:
-        return {k: SpanTotal(c, t * 1e-9, s * 1e-9) for k, (c, t, s) in _totals.items()}
 
 
 # ---------------------------------------------------------------- profiler

@@ -32,12 +32,12 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._tracing import span
 from ..device import resolve_device
-from ..misc.profiling import span
 from ..nn import ACTIVATIONS, dense_apply, dense_init, l2_sum, mlp_apply, mlp_init
 from ..ops.backmap import backmap as backmap_op
 from ..ops.backmap import backmap_multimer
-from ..ops.backmap_sidechains import _side_atoms_per_res, backmap_sidechains_train
+from ..ops.backmap_sidechains import _side_atoms_per_res, backmap_sidechains_fast
 from ..ops.distances import pairwise_dist
 from ..parameters import ADCParameters
 
@@ -461,8 +461,8 @@ def forward_sidechains(params: dict, p: ADCParameters, inputs: tuple,
     with span("adc.decode"):
         out_ca, out_cdi, out_sa, out_sdi = decode_sidechains(params, p, latent, shapes)
     with span("adc.backmap"):
-        back = backmap_sidechains_train(spec, central_distances, out_ca, out_cdi,
-                                        side_distances, out_sa, out_sdi)
+        back = backmap_sidechains_fast(spec, central_distances, out_ca, out_cdi,
+                                       side_distances, out_sa, out_sdi)
     inp_pair = out_pair = None
     if with_pairs:
         idx = torch.as_tensor(sidechain_pwd_indices(p, spec), device=back.device)

@@ -1,11 +1,13 @@
 # encodermap_tpu_torch/ops/__init__.py
 """Numerical building blocks of the port: distances, backmapping, Kabsch,
 the analytic and blocked Cartesian costs, the float64 ADC gradient oracle
-``adc_adjoint``, and the two kernel modules, ``fused_sigmoid`` (sketch-map
-loss) and ``fused_train`` (a chunk of EncoderMap steps). Counterpart of
+``adc_adjoint``, and the kernel modules, ``fused_sigmoid`` (sketch-map
+loss), ``fused_train`` (a chunk of EncoderMap steps), ``backmap``
+(``_OneWay``) and ``backmap_sidechains``. Counterpart of
 ``encodermap_tpu/ops``, with the same re-exports
-(``encodermap_tpu/ops/__init__.py:3-39``). The kernel modules build their
-CUDA libraries on first launch, not on import."""
+(``encodermap_tpu/ops/__init__.py:3-39``). The kernel modules declare their
+entry points with ``_build`` on import and build their CUDA libraries on
+first launch."""
 
 from . import adc_adjoint
 

@@ -11,10 +11,13 @@ source is rebuilt and an unchanged one is loaded as it is.
 Nothing here runs when the module is imported: the CPU tests import every
 module of the port, and this machine may have no ``nvcc``.
 
-:data:`launch_counts` counts kernel launches by kernel name. Each wrapper
-adds one where it launches its kernel and nowhere else, so a run can show
-which kernels its path went through. It is the ``launches`` counter of
-``misc/profiling.py``'s registry.
+Every kernel module declares its C entry points with :func:`register` when
+it is imported, asks :func:`kernel_route` whether its tensors go to the
+kernels (CUDA) or to its plain version (CPU), and launches through
+:func:`launch`. :data:`launch_counts` counts kernel launches by kernel name,
+in :func:`launch` and nowhere else, so a run can show which kernels its
+path went through. It is the ``launches`` counter of the registry in
+``_tracing.py``.
 """
 
 from __future__ import annotations
@@ -25,14 +28,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-from ..misc.profiling import launches as launch_counts
+from .._tracing import launches as launch_counts
 
 __all__ = ["CSRC", "build_all", "register", "load_library", "launch_counts",
-           "check_cuda", "stream_ptr"]
+           "check_cuda", "stream_ptr", "launch", "kernel_route"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the repository root's ``build/``, listed in ``.gitignore``
@@ -135,3 +138,36 @@ def check_cuda(lib: ctypes.CDLL, err: int, what: str) -> None:
 def stream_ptr() -> int:
     """PyTorch's current CUDA stream, as the kernels' ``cudaStream_t``."""
     return torch.cuda.current_stream().cuda_stream
+
+
+def launch(library: str, entry: str, *args) -> None:
+    """Call ``library``'s C entry point ``entry`` with ``args`` and PyTorch's
+    current CUDA stream last, count one launch under the entry's name less
+    its ``em_`` prefix (``em_sigmoid_fwd`` counts as ``sigmoid_fwd``), and
+    raise if the entry returned a CUDA error."""
+    lib = load_library(library)
+    err = getattr(lib, entry)(*args, stream_ptr())
+    launch_counts[entry.removeprefix("em_")] += 1
+    check_cuda(lib, err, entry)
+
+
+def kernel_route(tensors: Sequence, what: str,
+                 dtypes: tuple = (torch.float32, torch.float64)) -> bool:
+    """Whether ``tensors`` go to the kernels ``what`` names: True for CUDA
+    tensors of one device and of one of ``dtypes``, False for CPU tensors
+    (whatever their type: the plain versions take them); anything else
+    raises, before any library is loaded."""
+    devices = {x.device for x in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"the inputs of {what} lie on {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    types = {x.dtype for x in tensors}
+    if len(types) != 1 or not types <= set(dtypes):
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{what} take {names} tensors of one type, got "
+                        f"{sorted(map(str, types))}")
+    return True

@@ -39,12 +39,13 @@ port takes the forms the JAX package takes on the CPU. Quaternions are
 from __future__ import annotations
 
 import ctypes
-import functools
 from math import pi
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from . import _build
 
 __all__ = [
     "chain_in_plane",
@@ -63,6 +64,12 @@ __all__ = [
 ]
 
 _LIB = "backmap_one_way"
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_build.register(_LIB, [
+    ("em_one_way_fwd", [_I, _P, _L, _L, _P, _L, _L, _L, _I, _I, _P, _P, _P]),
+    ("em_one_way_bwd", [_I, _P, _L, _L, _P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _I, _P,
+                        _P, _P]),
+])
 
 
 def _signs(pattern_even: float, start: int, stop: int, like: torch.Tensor
@@ -203,59 +210,23 @@ def _one_way_bwd_plain(saved: tuple, grad: torch.Tensor
     return d_bar, v.permute(1, 2, 0)
 
 
-@functools.cache
-def _library():
-    """The one-way kernels' library, declared and loaded on first use.
-    ``_build`` is imported here and in the wrappers, not at the top: it
-    imports ``misc``, whose ``__init__`` imports this module."""
-    from . import _build
-
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    _build.register(_LIB, [
-        ("em_one_way_fwd", [I, P, L, L, P, L, L, L, I, I, P, P, P]),
-        ("em_one_way_bwd", [I, P, L, L, P, L, L, L, P, P, L, L, L, I, I, P, P, P]),
-    ])
-    return _build.load_library(_LIB)
-
-
-def _kernel_call(dihedrals: torch.Tensor, cartesian: torch.Tensor):
-    """The kernel library and its dtype flag, after checking what the
-    kernels take."""
-    if dihedrals.device.type != "cuda":
-        raise ValueError(f"unsupported device {dihedrals.device}")
-    if cartesian.device != dihedrals.device:
-        raise ValueError(f"dihedrals on {dihedrals.device}, cartesian on "
-                         f"{cartesian.device}")
-    if (dihedrals.dtype not in (torch.float32, torch.float64)
-            or cartesian.dtype != dihedrals.dtype):
-        raise TypeError(f"the one-way kernels take float32 or float64 tensors "
-                        f"of one type, got {dihedrals.dtype} and {cartesian.dtype}")
-    B, n = dihedrals.shape
-    if n < 1 or cartesian.shape != (B, n + 3, 3):
-        raise ValueError(f"(B, n >= 1) dihedrals and (B, n + 3, 3) coordinates "
-                         f"expected, got {tuple(dihedrals.shape)} and "
-                         f"{tuple(cartesian.shape)}")
-    return _library(), int(dihedrals.dtype == torch.float64)
-
-
 def _one_way_fwd(dihedrals: torch.Tensor, cartesian: torch.Tensor
                 ) -> tuple[torch.Tensor, tuple]:
     """The forward kernel for CUDA tensors, its plain version for CPU
     tensors: the curled coordinates and the tensors :func:`_one_way_bwd`
     takes (for the kernel: the inputs and ``C_0..C_{n-1}``, ``(B, n, 4)``)."""
-    if dihedrals.device.type == "cpu":
+    if not _build.kernel_route((dihedrals, cartesian), "the one-way kernels"):
         return _one_way_fwd_plain(dihedrals, cartesian)
-    from . import _build
-
-    lib, is_double = _kernel_call(dihedrals, cartesian)
     B, n = dihedrals.shape
+    if n < 1 or cartesian.shape != (B, n + 3, 3):
+        raise ValueError(f"(B, n >= 1) dihedrals and (B, n + 3, 3) coordinates "
+                         f"expected, got {tuple(dihedrals.shape)} and "
+                         f"{tuple(cartesian.shape)}")
     out = torch.empty((B, n + 3, 3), dtype=dihedrals.dtype, device=dihedrals.device)
     cum = torch.empty((B, n, 4), dtype=dihedrals.dtype, device=dihedrals.device)
-    err = lib.em_one_way_fwd(is_double, dihedrals.data_ptr(), *dihedrals.stride(),
-                             cartesian.data_ptr(), *cartesian.stride(), B, n,
-                             out.data_ptr(), cum.data_ptr(), _build.stream_ptr())
-    _build.launch_counts["one_way_fwd"] += 1
-    _build.check_cuda(lib, err, "em_one_way_fwd")
+    _build.launch(_LIB, "em_one_way_fwd", int(dihedrals.dtype == torch.float64),
+                  dihedrals.data_ptr(), *dihedrals.stride(), cartesian.data_ptr(),
+                  *cartesian.stride(), B, n, out.data_ptr(), cum.data_ptr())
     return out, (dihedrals, cartesian, cum)
 
 
@@ -263,26 +234,19 @@ def _one_way_bwd(saved: tuple, grad: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel for CUDA tensors, its plain version for CPU
     tensors: the cotangents of the dihedrals and the planar coordinates."""
-    if grad.device.type == "cpu":
+    if not _build.kernel_route((saved[0], grad), "the one-way kernels"):
         return _one_way_bwd_plain(saved, grad)
-    from . import _build
-
     dihedrals, cartesian, cum = saved
-    lib, is_double = _kernel_call(dihedrals, cartesian)
+    if grad.shape != cartesian.shape:
+        raise ValueError(f"a {tuple(cartesian.shape)} cotangent expected, got "
+                         f"{tuple(grad.shape)}")
     B, n = dihedrals.shape
-    if grad.dtype != cartesian.dtype:
-        raise TypeError(f"a {cartesian.dtype} cotangent expected, got {grad.dtype}")
-    if grad.shape != cartesian.shape or grad.device != cartesian.device:
-        raise ValueError(f"a {tuple(cartesian.shape)} cotangent on {cartesian.device} "
-                         f"expected, got {tuple(grad.shape)} on {grad.device}")
     d_bar = torch.empty_like(dihedrals, memory_format=torch.contiguous_format)
     v = torch.empty((B, n + 3, 3), dtype=grad.dtype, device=grad.device)
-    err = lib.em_one_way_bwd(is_double, dihedrals.data_ptr(), *dihedrals.stride(),
-                             cartesian.data_ptr(), *cartesian.stride(), cum.data_ptr(),
-                             grad.data_ptr(), *grad.stride(), B, n, d_bar.data_ptr(),
-                             v.data_ptr(), _build.stream_ptr())
-    _build.launch_counts["one_way_bwd"] += 1
-    _build.check_cuda(lib, err, "em_one_way_bwd")
+    _build.launch(_LIB, "em_one_way_bwd", int(dihedrals.dtype == torch.float64),
+                  dihedrals.data_ptr(), *dihedrals.stride(), cartesian.data_ptr(),
+                  *cartesian.stride(), cum.data_ptr(), grad.data_ptr(), *grad.stride(),
+                  B, n, d_bar.data_ptr(), v.data_ptr())
     return d_bar, v
 
 

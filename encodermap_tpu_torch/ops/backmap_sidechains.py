@@ -25,11 +25,9 @@ reference's ``BackMapLayerWithSidechains``, ``models/layers.py:219-902``):
   (a recorded divergence). CUDA tensors go through a hand-written kernel
   each way (``csrc/backmap_sidechains.cu``, launch counters
   ``sidechain_fwd`` and ``sidechain_bwd``), CPU tensors through the plain
-  version ``_backmap_sidechains_fast_plain``.
-* :func:`backmap_sidechains_train` is the fast form as the training step
-  calls it: with the spans on (``misc/profiling.py``) it counts its rows
-  (counter ``sidechain_backmap``) and runs its backward under the span
-  ``adc.backmap_backward``; with them off it is the fast form.
+  version ``_backmap_sidechains_fast_plain``; wherever a gradient is taken
+  the backward runs under the span ``adc.backmap_backward``
+  (``_SidechainBackmap``).
 
 PyTorch has no ``associative_scan``: in the plain version both scans run
 through ``ops/backmap.py``'s doubling scan (``_cumulative_quats``,
@@ -45,7 +43,6 @@ derived by hand (``_SidechainBackmap``).
 from __future__ import annotations
 
 import ctypes
-import functools
 from math import pi
 from typing import NamedTuple, Optional
 
@@ -53,13 +50,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..misc.profiling import counter, span, spans_enabled
+from .._tracing import counter, span, spans_enabled
+from . import _build
 from .backmap import _cumulative_quats, _quat_compose, _quat_rotate
 
 __all__ = ["SidechainBackmapSpec", "backmap_sidechains", "backmap_sidechains_fast",
-           "backmap_sidechains_train", "make_spec"]
+           "make_spec"]
 
 _LIB = "backmap_sidechains"
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_build.register(_LIB, [
+    ("em_sidechain_fwd", [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    ("em_sidechain_bwd", [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _L, _L, _L, _P, _P,
+                          _P]),
+])
 
 
 class SidechainBackmapSpec(NamedTuple):
@@ -523,40 +527,6 @@ def _backmap_sidechains_fast_plain(spec: SidechainBackmapSpec,
 
 
 # ------------------------------------------------------------ the kernels
-@functools.cache
-def _library():
-    """The sidechain kernels' library, declared and loaded on first use
-    (``_build`` is imported here, not at the top: it imports ``misc``,
-    whose ``__init__`` imports the ops)."""
-    from . import _build
-
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    _build.register(_LIB, [
-        ("em_sidechain_fwd", [I, P, P, P, I, I, I, I, P, P, P, P]),
-        ("em_sidechain_bwd", [I, P, P, P, I, I, I, I, P, P, P, L, L, L, P, P, P]),
-    ])
-    return _build.load_library(_LIB)
-
-
-def _kernel_route(inputs) -> bool:
-    """Whether :func:`backmap_sidechains_fast` launches the kernels: True
-    for CUDA tensors of one device and of float32 or float64, False for CPU
-    tensors; anything else raises."""
-    devices = {x.device for x in inputs}
-    if len(devices) != 1:
-        raise ValueError(f"the sidechain backmap's inputs lie on {sorted(map(str, devices))}")
-    device = devices.pop()
-    if device.type == "cpu":
-        return False
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    dtypes = {x.dtype for x in inputs}
-    if len(dtypes) != 1 or dtypes & {torch.float32, torch.float64} != dtypes:
-        raise TypeError(f"the sidechain kernels take float32 or float64 tensors of one "
-                        f"type, got {sorted(map(str, dtypes))}")
-    return True
-
-
 def _pointers(tensors) -> tuple:
     """ctypes arrays of the tensors' data pointers and of their (row,
     column) strides."""
@@ -570,9 +540,6 @@ def _sidechain_fwd(spec: SidechainBackmapSpec, inputs) -> tuple:
     """The forward kernel: the coordinates ``(B, nb + n_side, 3)`` and each
     bond's rotation ``(B, nb - 1 + n_side, 4)`` and heading ``(B, nb - 1 +
     n_side)``, which :func:`_sidechain_bwd` takes."""
-    from . import _build
-
-    lib = _library()
     x = inputs[0]
     B, nb, n_side = x.shape[0], 3 * spec.n_residues, spec.n_sidechain_atoms
     tb = _fast_tables(spec, x.device)
@@ -584,12 +551,9 @@ def _sidechain_fwd(spec: SidechainBackmapSpec, inputs) -> tuple:
     quat = torch.empty((B, nb - 1 + n_side, 4), dtype=x.dtype, device=x.device)
     head = torch.empty((B, nb - 1 + n_side), dtype=x.dtype, device=x.device)
     ptrs, strides = _pointers(inputs)
-    err = lib.em_sidechain_fwd(int(x.dtype == torch.float64), ptrs, strides,
-                               tb["kernel"].data_ptr(), B, nb, tb["n_br"], n_side,
-                               out.data_ptr(), quat.data_ptr(), head.data_ptr(),
-                               _build.stream_ptr())
-    _build.launch_counts["sidechain_fwd"] += 1
-    _build.check_cuda(lib, err, "em_sidechain_fwd")
+    _build.launch(_LIB, "em_sidechain_fwd", int(x.dtype == torch.float64), ptrs, strides,
+                  tb["kernel"].data_ptr(), B, nb, tb["n_br"], n_side, out.data_ptr(),
+                  quat.data_ptr(), head.data_ptr())
     return out, quat, head
 
 
@@ -598,58 +562,80 @@ def _sidechain_bwd(spec: SidechainBackmapSpec, inputs, quat: torch.Tensor,
     """The backward kernel: the gradients of the six inputs (contiguous)
     from the coordinates' cotangent ``grad`` (any strides) and what
     :func:`_sidechain_fwd` returned."""
-    from . import _build
-
     x = inputs[0]
     B, nb, n_side = x.shape[0], 3 * spec.n_residues, spec.n_sidechain_atoms
     if grad.dtype != x.dtype or grad.device != x.device or grad.shape != (B, nb + n_side, 3):
         raise TypeError(f"a ({B}, {nb + n_side}, 3) {x.dtype} cotangent on {x.device} "
                         f"expected, got {tuple(grad.shape)} {grad.dtype} on {grad.device}")
     tb = _fast_tables(spec, x.device)
-    lib = _library()
     grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in inputs]
     part = torch.empty((B, tb["n_br"], 7), dtype=x.dtype, device=x.device)
     ptrs, strides = _pointers(inputs)
     outs = (ctypes.c_void_p * len(grads))(*(t.data_ptr() for t in grads))
-    err = lib.em_sidechain_bwd(int(x.dtype == torch.float64), ptrs, strides,
-                               tb["kernel"].data_ptr(), B, nb, tb["n_br"], n_side,
-                               quat.data_ptr(), head.data_ptr(), grad.data_ptr(),
-                               *grad.stride(), part.data_ptr(), outs, _build.stream_ptr())
-    _build.launch_counts["sidechain_bwd"] += 1
-    _build.check_cuda(lib, err, "em_sidechain_bwd")
+    _build.launch(_LIB, "em_sidechain_bwd", int(x.dtype == torch.float64), ptrs, strides,
+                  tb["kernel"].data_ptr(), B, nb, tb["n_br"], n_side, quat.data_ptr(),
+                  head.data_ptr(), grad.data_ptr(), *grad.stride(), part.data_ptr(), outs)
     return grads
 
 
 class _SidechainBackmap(torch.autograd.Function):
-    """:func:`backmap_sidechains_fast` for CUDA tensors: one kernel each way
-    (``csrc/backmap_sidechains.cu``; launch counters ``sidechain_fwd`` and
-    ``sidechain_bwd``). The forward saves each bond's rotation and heading
-    (5 values a bond: 2.3 kB a frame in float32 on trp-cage); the backward
-    is the hand-derived adjoint of the fast form (the kernels' source
-    derives it), takes the gradients of all six inputs, and runs under the
-    span ``adc.backmap_backward``. With ``count`` (the training call with
-    the spans on) it adds its rows to the counter ``sidechain_backmap``.
-    Its backward is not differentiated again."""
+    """:func:`backmap_sidechains_fast` wherever a gradient is taken, and on
+    the card always. Its backward runs under the span
+    ``adc.backmap_backward`` and is not differentiated again (a second
+    derivative raises). While the spans are on it counts its calls and rows
+    forward (``fwd``, ``rows_fwd``) and backward (``bwd``, ``rows_bwd``) in
+    the counter ``sidechain_backmap``.
+
+    * ``kernel`` (CUDA tensors): one kernel each way
+      (``csrc/backmap_sidechains.cu``; launch counters ``sidechain_fwd`` and
+      ``sidechain_bwd``). The forward saves each bond's rotation and heading
+      (5 values a bond: 2.3 kB a frame in float32 on trp-cage); the backward
+      is the hand-derived adjoint of the fast form (the kernels' source
+      derives it) and takes the gradients of all six inputs.
+    * CPU tensors: the forward builds the plain version's graph on detached
+      inputs, and the backward runs autograd over that saved graph. The
+      operations and their order are those of autograd through the plain
+      version: nothing is recomputed, and each input that takes a gradient
+      reaches the coordinates through one use, so its gradient is the same
+      sum; an input the graph does not use (of width 0) gets none."""
 
     @staticmethod
-    def forward(ctx, spec, count, *inputs):
-        out, quat, head = _sidechain_fwd(spec, inputs)
-        ctx.spec, ctx.count = spec, count
-        ctx.save_for_backward(*inputs, quat, head)
-        return out
+    def forward(ctx, spec, kernel, *inputs):
+        if spans_enabled():
+            count = counter("sidechain_backmap")
+            count["fwd"] += 1
+            count["rows_fwd"] += inputs[0].shape[0]
+        ctx.spec, ctx.kernel = spec, kernel
+        if kernel:
+            out, quat, head = _sidechain_fwd(spec, inputs)
+            ctx.save_for_backward(*inputs, quat, head)
+            return out
+        needs = ctx.needs_input_grad[2:]
+        leaves = [x.detach().requires_grad_(need) for x, need in zip(inputs, needs)]
+        with torch.enable_grad():
+            ctx.out = _backmap_sidechains_fast_plain(spec, *leaves)
+        ctx.leaves = [x for x, need in zip(leaves, needs) if need]
+        return ctx.out.detach()
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        *inputs, quat, head = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
         with span("adc.backmap_backward"):
-            grads = _sidechain_bwd(ctx.spec, inputs, quat, head, grad)
-        if ctx.count:
+            if ctx.kernel:
+                *inputs, quat, head = ctx.saved_tensors
+                grads = _sidechain_bwd(ctx.spec, inputs, quat, head, grad)
+            else:
+                # the graph is kept for a second backward through the step's
+                # graph, as autograd through the plain version would allow
+                taken = iter(torch.autograd.grad(ctx.out, ctx.leaves, grad,
+                                                 retain_graph=True, allow_unused=True))
+                grads = [next(taken) if need else None for need in needs]
+        if spans_enabled():
             count = counter("sidechain_backmap")
             count["bwd"] += 1
             count["rows_bwd"] += grad.shape[0]
-        return (None, None) + tuple(g if need else None
-                                    for g, need in zip(grads, ctx.needs_input_grad[2:]))
+        return (None, None) + tuple(g if need else None for g, need in zip(grads, needs))
 
 
 def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch.Tensor,
@@ -662,69 +648,14 @@ def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch
     two cumulative quaternion products. Same arguments and result.
 
     CUDA tensors (float32 or float64, of one device) go through one
-    hand-written kernel each way (``_SidechainBackmap``); CPU tensors
-    through the plain version ``_backmap_sidechains_fast_plain``, and the
-    kernels' library is never loaded; any other device or type raises."""
+    hand-written kernel each way; CPU tensors through the plain version
+    ``_backmap_sidechains_fast_plain``, and the kernels' library is never
+    loaded; any other device or type raises. Both devices take
+    ``_SidechainBackmap`` wherever a gradient is taken, the card always;
+    the CPU without a gradient calls the plain version directly."""
     inputs = (central_distances, central_angles, central_dihedrals, side_distances,
               side_angles, side_dihedrals)
-    if _kernel_route(inputs):
-        return _SidechainBackmap.apply(spec, False, *inputs)
+    kernel = _build.kernel_route(inputs, "the sidechain kernels")
+    if kernel or torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return _SidechainBackmap.apply(spec, kernel, *inputs)
     return _backmap_sidechains_fast_plain(spec, *inputs)
-
-
-# ------------------------------------------------------------ training call
-class _SpannedBackmap(torch.autograd.Function):
-    """:func:`backmap_sidechains_fast` with its backward under the span
-    ``adc.backmap_backward``. The forward builds the fast form's graph on
-    detached inputs; the backward runs autograd over that saved graph inside
-    the span. The operations and their order are those of autograd through
-    the fast form: nothing is recomputed, and each input that takes a
-    gradient reaches the coordinates through one use, so its gradient is
-    the same sum. Its backward is not differentiated again (a second
-    derivative raises)."""
-
-    @staticmethod
-    def forward(ctx, spec, *inputs):
-        needs = ctx.needs_input_grad[1:]
-        leaves = [x.detach().requires_grad_(need) for x, need in zip(inputs, needs)]
-        with torch.enable_grad():
-            out = backmap_sidechains_fast(spec, *leaves)
-        ctx.out = out
-        ctx.leaves = [x for x, need in zip(leaves, needs) if need]
-        return out.detach()
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        with span("adc.backmap_backward"):
-            # the graph is kept for a second backward through the step's
-            # graph, as autograd through the fast form would allow
-            grads = iter(torch.autograd.grad(ctx.out, ctx.leaves, grad, retain_graph=True))
-        count = counter("sidechain_backmap")
-        count["bwd"] += 1
-        count["rows_bwd"] += grad.shape[0]
-        return (None,) + tuple(next(grads) if need else None
-                               for need in ctx.needs_input_grad[1:])
-
-
-def backmap_sidechains_train(spec: SidechainBackmapSpec, *inputs: torch.Tensor
-                             ) -> torch.Tensor:
-    """:func:`backmap_sidechains_fast` (same arguments and result) as the
-    training step calls it. With the spans off it is the fast form. With
-    them on, the counter ``sidechain_backmap`` counts the calls and rows
-    backmapped forward (``fwd``, ``rows_fwd``) and backward (``bwd``,
-    ``rows_bwd``), and where a gradient is taken the backward runs under
-    the span ``adc.backmap_backward``: on the card the same kernels as with
-    the spans off (whose backward always runs under that span), on the CPU
-    ``_SpannedBackmap``, with gradients bit for bit those of autograd
-    through the fast form."""
-    if not spans_enabled():
-        return backmap_sidechains_fast(spec, *inputs)
-    count = counter("sidechain_backmap")
-    count["fwd"] += 1
-    count["rows_fwd"] += inputs[0].shape[0]
-    if _kernel_route(inputs):
-        return _SidechainBackmap.apply(spec, True, *inputs)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
-        return _SpannedBackmap.apply(spec, *inputs)
-    return backmap_sidechains_fast(spec, *inputs)

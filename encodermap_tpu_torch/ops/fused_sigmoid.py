@@ -75,17 +75,16 @@ _build.register(_LIB, [
 ])
 
 
-def _check_inputs(h: torch.Tensor, l: torch.Tensor) -> None:
+def _kernel_route(h: torch.Tensor, l: torch.Tensor) -> bool:
+    """Check the shapes, then whether ``h`` and ``l`` go to the kernels
+    (``_build.kernel_route``)."""
     if h.ndim != 2 or l.ndim != 2 or h.shape[0] != l.shape[0]:
         raise ValueError(f"h (B, D) and l (B, d) expected, got "
                          f"{tuple(h.shape)} and {tuple(l.shape)}")
-    if h.device != l.device:
-        raise ValueError(f"h on {h.device}, l on {l.device}")
+    return _build.kernel_route((h, l), "the sigmoid-loss kernels", (torch.float32,))
 
 
 def _cuda_args(h, l, params, periodicity):
-    if h.dtype != torch.float32 or l.dtype != torch.float32:
-        raise TypeError("the sigmoid-loss kernels take float32 tensors")
     if not (h.is_contiguous() and l.is_contiguous()):
         raise ValueError("the sigmoid-loss kernels take contiguous tensors")
     periodic = math.isfinite(periodicity)
@@ -138,20 +137,14 @@ def sigmoid_loss_bwd_plain(h, l, params, periodicity) -> torch.Tensor:
 def sigmoid_loss_fwd(h, l, params, periodicity) -> torch.Tensor:
     """The forward kernel for CUDA tensors, its plain version for CPU
     tensors; a 0-d float32 tensor."""
-    _check_inputs(h, l)
-    if h.device.type == "cpu":
+    if not _kernel_route(h, l):
         return sigmoid_loss_fwd_plain(h, l, params, periodicity)
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
     lib = _build.load_library(_LIB)
     args = _cuda_args(h, l, params, periodicity)
     partials = torch.empty(lib.em_sigmoid_fwd_workspace(h.shape[0]),
                            dtype=torch.float32, device=h.device)
     out = torch.empty((), dtype=torch.float32, device=h.device)
-    err = lib.em_sigmoid_fwd(*args, partials.data_ptr(), out.data_ptr(),
-                             _build.stream_ptr())
-    _build.launch_counts["sigmoid_fwd"] += 1
-    _build.check_cuda(lib, err, "em_sigmoid_fwd")
+    _build.launch(_LIB, "em_sigmoid_fwd", *args, partials.data_ptr(), out.data_ptr())
     return out
 
 
@@ -159,12 +152,9 @@ def sigmoid_loss_bwd(h, l, params, periodicity, grad_output=None
                      ) -> torch.Tensor:
     """``grad_output * d loss / d l``: the backward kernel for CUDA tensors,
     its plain version for CPU tensors."""
-    _check_inputs(h, l)
-    if h.device.type == "cpu":
+    if not _kernel_route(h, l):
         grad = sigmoid_loss_bwd_plain(h, l, params, periodicity)
         return grad if grad_output is None else grad * grad_output
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
     lib = _build.load_library(_LIB)
     args = _cuda_args(h, l, params, periodicity)
     if grad_output is None:
@@ -173,10 +163,8 @@ def sigmoid_loss_bwd(h, l, params, periodicity, grad_output=None
     grad = torch.empty_like(l)
     ws = torch.empty(lib.em_sigmoid_bwd_workspace(h.shape[0], l.shape[1]),
                      dtype=torch.float32, device=h.device)
-    err = lib.em_sigmoid_bwd(*args, gout.data_ptr(), ws.data_ptr(),
-                             grad.data_ptr(), _build.stream_ptr())
-    _build.launch_counts["sigmoid_bwd"] += 1
-    _build.check_cuda(lib, err, "em_sigmoid_bwd")
+    _build.launch(_LIB, "em_sigmoid_bwd", *args, gout.data_ptr(), ws.data_ptr(),
+                  grad.data_ptr())
     return grad
 
 

@@ -38,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from ..misc.profiling import span
+from .._tracing import span
 from . import _build
 from .distances import dsig_over_r, pairwise_dist, sig_value
 
@@ -477,12 +477,10 @@ def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
     Returns:
         ``(params_flat, mu_flat, nu_flat, metrics (steps, 5))``.
     """
-    if data.device.type == "cpu":
+    if not _build.kernel_route([data], "the fused-train kernels", (torch.float32,)):
         return fused_chunk_plain(params_flat, mu_flat, nu_flat, step0, data,
                                  idx, n_enc=n_enc, hyper=hyper)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
-    if data.dtype != torch.float32 or data.ndim != 2:
+    if data.ndim != 2:
         raise TypeError("fused_chunk takes a float32 (n, d0) dataset")
     if idx.ndim != 2:
         raise ValueError(f"idx must be (steps, B), got {tuple(idx.shape)}")
@@ -504,7 +502,6 @@ def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
     route = kernel or fused_route(dims, n_enc, B, d0)
     if route not in (_LIB, _CLUSTER_LIB):
         raise ValueError(f"unknown kernel {route!r}")
-    lib = _build.load_library(route)
     dims_c = (ctypes.c_int * len(dims))(*dims)
     losses = hyper["losses"]
     hyper_c = (ctypes.c_double * 12)(
@@ -528,19 +525,15 @@ def fused_chunk(params_flat: list, mu_flat: list, nu_flat: list,
                              f"shared memory per CTA of a {CLUSTER}-CTA "
                              f"cluster; a block may use {MAX_SMEM_BYTES}")
         _check_clocks(clocks, (CLUSTER, len(CLUSTER_PHASES)), data.device)
-        err = lib.em_fused_train_cluster(
-            *args, None if clocks is None else clocks.data_ptr(),
-            _build.stream_ptr())
+        _build.launch(_CLUSTER_LIB, "em_fused_train_cluster", *args,
+                      None if clocks is None else clocks.data_ptr())
     else:
-        plan = grid_plan(dims, n_enc, B, d0, _grid_clusters(lib, periodic))
+        plan = grid_launch_plan(dims, n_enc, B, d0, periodic)
         _check_clocks(clocks, (plan["ctas"], len(GRID_PHASES)), data.device)
         scratch = torch.empty(plan["floats"]["total"], dtype=torch.float32,
                               device=data.device)
-        err = lib.em_fused_train(
-            *args, scratch.data_ptr(), _plan_array(plan),
-            None if clocks is None else clocks.data_ptr(), _build.stream_ptr())
-    _build.launch_counts[route] += 1
-    _build.check_cuda(lib, err, f"{route} launch")
+        _build.launch(_LIB, "em_fused_train", *args, scratch.data_ptr(),
+                      _plan_array(plan), None if clocks is None else clocks.data_ptr())
     return (_unpack(params, params_flat), _unpack(mu, mu_flat),
             _unpack(nu, nu_flat), metrics)
 

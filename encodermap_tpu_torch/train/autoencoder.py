@@ -75,6 +75,7 @@ from ..misc.saving import (
 from ..misc.summaries import MetricsWriter
 from ..models import sequential as seq
 from ..nn import has_tp_layers
+from ..ops.fused_train import fused_trainer_available, make_fused_trainer
 from ..parameters import Parameters
 from ..parallel.distributed import gather_rows, is_primary
 from .callbacks import Callback, CheckpointSaver, NaNInterrupt, ProgressBar
@@ -781,8 +782,6 @@ class EncoderMap(Autoencoder):
         (parameters on the card, input dim, activations, cost variant,
         dtype). A mesh takes the general route, with a warning once, as in
         the JAX package: the fused kernel is a single-device program."""
-        from ..ops.fused_train import fused_trainer_available, make_fused_trainer
-
         if not getattr(self.p, "fused_trainer", True):
             return None
         if self.mesh is not None:

@@ -816,13 +816,13 @@ def test_sidechain_kernels_take_strided_views(cuda):
 
 
 def test_sidechain_training_call_spans_and_counter_on_card(cuda):
-    """With the spans on, ``backmap_sidechains_train`` launches the same
+    """With the spans on, ``backmap_sidechains_fast`` launches the same
     kernels as with them off (same bits), its backward kernel's launch lies
     inside the span ``adc.backmap_backward``, and the counter
     ``sidechain_backmap`` counts one call and B rows each way."""
     from encodermap_tpu_torch.misc import profiling as P
     from encodermap_tpu_torch.ops import _build
-    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_train
+    from encodermap_tpu_torch.ops.backmap_sidechains import backmap_sidechains_fast
 
     spec, x, g = _sidechain_case("trp-cage", 256, torch.float32, cuda)
     runs = {}
@@ -832,7 +832,7 @@ def test_sidechain_training_call_spans_and_counter_on_card(cuda):
         with P.record_spans() if spanned else contextlib.nullcontext():
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                     torch.profiler.ProfilerActivity.CUDA]) as prof:
-                runs[spanned] = _sidechain_run(backmap_sidechains_train, spec, x, g)
+                runs[spanned] = _sidechain_run(backmap_sidechains_fast, spec, x, g)
                 torch.cuda.synchronize()
         moved = {k: v - counts.get(k, 0) for k, v in _build.launch_counts.items()
                  if v != counts.get(k, 0)}

@@ -127,12 +127,13 @@ def test_kernel_table_built_once_per_spec_and_device():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("name,spanned", [("trp-cage", False), ("trp-cage", True),
-                                          ("none", False), ("one-residue", False)])
+                                          ("none", False), ("none", True),
+                                          ("one-residue", False), ("one-residue", True)])
 def test_cpu_route_runs_the_plain_version(name, spanned, dtype):
     """No launch counted, the kernels' library never loaded, outputs and
     gradients bit for bit the plain version's (none for an input of width
-    0, as autograd gives it), through the fast form and, spans on, the
-    training call."""
+    0, as autograd gives it), through the fast form with the spans off and
+    on."""
     from encodermap_tpu_torch.misc import profiling as P
 
     spec, x = _inputs(INFOS[name])
@@ -141,14 +142,13 @@ def test_cpu_route_runs_the_plain_version(name, spanned, dtype):
     counts = dict(_build.launch_counts)
     leaves = [t.clone().requires_grad_(True) for t in x]
     with (P.record_spans() if spanned else contextlib.nullcontext()):
-        fn = T.backmap_sidechains_train if spanned else T.backmap_sidechains_fast
-        y = fn(spec, *leaves)
+        y = T.backmap_sidechains_fast(spec, *leaves)
         (y * grad).sum().backward()
     ref = [t.clone().requires_grad_(True) for t in x]
     want = T._backmap_sidechains_fast_plain(spec, *ref)
     (want * grad).sum().backward()
     assert dict(_build.launch_counts) == counts
-    assert T._LIB not in _build._loaded and T._library.cache_info().currsize == 0
+    assert T._LIB not in _build._loaded
     assert y.dtype == dtype and torch.equal(y.detach(), want.detach())
     for a, b in zip(leaves, ref):
         assert (a.grad is None and b.grad is None and a.shape[1] == 0
@@ -169,11 +169,14 @@ def test_other_devices_and_types_raise():
     def fake(*dtypes):
         return [types.SimpleNamespace(device=cuda, dtype=d) for d in dtypes]
 
+    def route(tensors):
+        return _build.kernel_route(tensors, "the sidechain kernels")
+
     for dtypes in ([torch.float16] * 6, [torch.bfloat16] * 6,
                    [torch.float32] * 5 + [torch.float64]):
         with pytest.raises(TypeError, match="float32 or float64"):
-            T._kernel_route(fake(*dtypes))
-    assert T._kernel_route(fake(*[torch.float32] * 6))
-    assert T._kernel_route(fake(*[torch.float64] * 6))
-    assert not T._kernel_route(x)
+            route(fake(*dtypes))
+    assert route(fake(*[torch.float32] * 6))
+    assert route(fake(*[torch.float64] * 6))
+    assert not route(x)
     assert T._LIB not in _build._loaded

@@ -169,10 +169,11 @@ DECODED = (1, 2, 4, 5)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_spanned_backmap_gradients_equal_autograd_bit_for_bit(dtype):
-    """With the spans on, ``backmap_sidechains_train`` gives the fast
+    """With the spans on, ``backmap_sidechains_fast`` gives the plain
     version's coordinates and, under a loss that also reads the decoded
-    inputs directly (as training's angle costs do), its gradients bit for
-    bit; it counts its rows and runs its backward under its own span."""
+    inputs directly (as training's angle costs do), the gradients of
+    autograd through the plain version bit for bit; it counts its rows and
+    runs its backward under its own span."""
     spec = T.make_spec(TRP_CAGE_SIDECHAIN_INFO)
     x = _inputs(TRP_CAGE_SIDECHAIN_INFO, B=8, seed=7)
     w = torch.randn((8, spec.n_atoms, 3), generator=torch.Generator().manual_seed(8),
@@ -181,7 +182,7 @@ def test_spanned_backmap_gradients_equal_autograd_bit_for_bit(dtype):
     def run(spanned):
         xs = [torch.tensor(v, dtype=dtype).requires_grad_(i in DECODED)
               for i, v in enumerate(x)]
-        fn = T.backmap_sidechains_train if spanned else T.backmap_sidechains_fast
+        fn = T.backmap_sidechains_fast if spanned else T._backmap_sidechains_fast_plain
         out = fn(spec, *xs)
         loss = (out * w).sum() + sum(torch.sin(xs[i]).sum() for i in DECODED)
         return out, torch.autograd.grad(loss, [xs[i] for i in DECODED])
@@ -203,13 +204,13 @@ def test_spanned_backmap_gradcheck_float64():
     spec = T.make_spec(INFO)
     x = tuple(torch.tensor(v, requires_grad=True) for v in _inputs(INFO, B=2, seed=9))
     with P.record_spans():
-        assert torch.autograd.gradcheck(lambda *a: T.backmap_sidechains_train(spec, *a), x)
+        assert torch.autograd.gradcheck(lambda *a: T.backmap_sidechains_fast(spec, *a), x)
 
 
 def test_training_with_spans_on_equals_training_with_them_off(tmp_path):
-    """A reconstruct-mode ADC trained with the spans on (its sidechain
-    backmap through the spanned function) ends bit for bit where one
-    trained with them off ends; spans off record nothing."""
+    """A reconstruct-mode ADC trained with the spans on (the sidechain
+    backmap's backward under its span) ends bit for bit where one trained
+    with them off ends; spans off record nothing."""
     cvs = sidechain_cvs(256, seed=3, device="cpu")
 
     def train(name):

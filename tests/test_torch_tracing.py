@@ -83,14 +83,23 @@ def _side_count() -> dict:
 
 
 def _window(fn):
-    """Span counts and totals that ``fn()`` added, with spans on."""
+    """Span counts and totals that ``fn()`` added, with spans on. Each
+    difference of seconds is rounded to whole nanoseconds, the totals' own
+    unit: the difference of two float snapshots of integer nanoseconds can
+    be an ULP off, so a span whose earlier totals hold a child could read
+    its self time above its total."""
     with P.record_spans():
         before = P.span_totals()
         fn()
         after = P.span_totals()
     zero = P.SpanTotal(0, 0.0, 0.0)
-    return {k: P.SpanTotal(*(a - b for a, b in zip(v, before.get(k, zero))))
-            for k, v in after.items() if v.count != before.get(k, zero).count}
+
+    def ns(a, b):
+        return round((a - b) * 1e9) * 1e-9
+
+    return {k: P.SpanTotal(v.count - b.count, ns(v.total_s, b.total_s), ns(v.self_s, b.self_s))
+            for k, v in after.items()
+            for b in [before.get(k, zero)] if v.count != b.count}
 
 
 # ------------------------------------------------------------------- off
@@ -252,7 +261,12 @@ def test_profile_steps_traces_the_spans(tmp_path):
 
 # --------------------------------------------------------------- counters
 def test_launch_counts_is_the_registrys_launches():
+    from encodermap_tpu_torch import _tracing
+
     assert _build.launch_counts is P.launches is P.counter("launches")
+    for name in ("span", "record_spans", "spans_enabled", "span_totals", "SpanTotal",
+                 "counter", "launches", "_counters"):
+        assert getattr(P, name) is getattr(_tracing, name), name
     c = P.counter("test.counter")
     c["x"] += 2
     assert P.counter("test.counter")["x"] == 2
