@@ -43,7 +43,9 @@ the card (the kernels within 3x of the plain version's distance from
 it), and holds the backmap's one-way kernels against their plain versions
 at trp-cage's two halves and at 236 bonds, B=256 (``hold_one_way``), and
 the sidechain leg the sidechain backmap's kernels at trp-cage, B=256
-(``hold_sidechain``); every ADC leg checks how often they launch. The observability leg trains config
+(``hold_sidechain``), and the clip + Adam kernel bit for bit against its
+plain version at both ADC configurations' leaves (``hold_clip_adam``);
+every ADC leg checks how often they launch. The observability leg trains config
 1 with TensorBoard events, the model summary and a latent-histogram image written
 by a callback, reads the event file back (CRCs, tags, steps, float32
 values equal to the JSONL rows), trains the ADC with TensorBoard on,
@@ -961,9 +963,11 @@ def phase_general_f64(em, _build) -> dict:
     """The general route against float64 at each of GENERAL_F64_SHAPES and
     F64_SEEDS after F64_STEPS (``general_f64_runs``): the kernels' route
     held to ``f64_rule`` by ``hold_f64``'s gate, and bit for bit over two
-    runs. Returns the sigmoid kernels' launches."""
+    runs. Every run, the float64 one too, steps through the clip + Adam
+    kernel once a step. Returns the sigmoid and the clip + Adam kernels'
+    launches."""
     t0 = time.perf_counter()
-    launches = {"sigmoid_fwd": 0, "sigmoid_bwd": 0}
+    launches = {"sigmoid_fwd": 0, "sigmoid_bwd": 0, "clip_adam": 0}
     n_last = F64_STEPS[-1]
     for kind, B in GENERAL_F64_SHAPES:
         for seed in F64_SEEDS:
@@ -972,7 +976,8 @@ def phase_general_f64(em, _build) -> dict:
             res = general_f64_runs(em, kind, B, seed, F64_STEPS, kernel_runs=2)
             torch.cuda.synchronize()
             counts = dict(_build.launch_counts)
-            check(counts == {"sigmoid_fwd": 2 * n_last, "sigmoid_bwd": 2 * n_last},
+            check(counts == {"sigmoid_fwd": 2 * n_last, "sigmoid_bwd": 2 * n_last,
+                             "clip_adam": len(res[n_last]) * n_last},
                   f"{name} launched {counts}")
             for k in launches:
                 launches[k] += counts[k]
@@ -1060,6 +1065,8 @@ def phase_general(em, _build, run_dir: Path, sig_ms: float) -> dict:
           f"general route: sigmoid kernels not launched ({counts})")
     check(counts.get("fused_train", 0) == 0 and counts.get("fused_train_cluster", 0) == 0,
           "general route ran a fused kernel")
+    check(counts.get("clip_adam", 0) == p.n_steps,
+          f"general route: clip + Adam kernel launched {counts}, expected once a step")
     check(bool(np.isfinite(hist["loss"]).all()), "general route: non-finite loss")
     log(f"[general] launches {counts}, loss {hist['loss'][0]:.4f} -> "
         f"{hist['loss'][-1]:.4f}, {6 * 16384 / wall:.0f} samples/s "
@@ -1612,6 +1619,76 @@ def hold_sidechain(B: int = 256, reps: int = 200) -> dict:
                 bwd=(max(e[0] for e in f64[1:]), ms[1], ms_p[1], bound[1]), host=host)
 
 
+#: input widths of the benchmark's two ADC configurations at [128,128,2]:
+#: trp-cage's backbone (``adc-128-128-2``) and with its sidechains
+#: (``adc-sidechains-128-128-2``)
+ADC_WIDTHS = {"adc-128-128-2": 304, "adc-sidechains-128-128-2": 412}
+
+
+def adc_leaf_shapes(width: int) -> list:
+    """The 12 leaves of an ADC at [128,128,2] with a ``width``-wide input,
+    each layer's bias and kernel."""
+    layers = [(2, 128), (128, 128), (128, width), (width, 128), (128, 128), (128, 2)]
+    return [s for k in layers for s in ((k[1],), k)]
+
+
+def hold_clip_adam(reps: int = 500, steps: tuple = (1, 2, 3, 7, 1000)) -> dict:
+    """The clip + Adam kernel (``csrc/clip_adam.cu``) against its plain
+    version, ``_adam_update`` a leaf, on the same card tensors at the 12
+    float32 leaves of each of ADC_WIDTHS' configurations, gradients of
+    scale 1.5 (many past the clip): new parameters and both moments bit for
+    bit at each of ``steps``. Times, at step 3 on the card alone (a CUDA
+    graph, ``device_ms``), the kernel, the plain version (180 launches) and
+    the library's multi-tensor Adam (``torch._fused_adam_``, in place,
+    after an in-place clamp of the gradients: the same algorithm, its own
+    order of operations); the bound is 28 bytes a parameter (p, m, v and g
+    read, p, m and v written) at 3.35 TB/s. Returns, by configuration,
+    (abs err, ms, plain ms, library ms, bound)."""
+    from encodermap_tpu_torch.ops.clip_adam import _adam_update, clip_adam
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from sigmoid_time import device_ms
+
+    out = {}
+    for name, width in ADC_WIDTHS.items():
+        g = torch.Generator(device="cuda").manual_seed(width)
+        p, m, v, grads = ([torch.randn(s, generator=g, device="cuda") * scale
+                           for s in adc_leaf_shapes(width)] for scale in (1.0, 0.1, 0.1, 1.5))
+        v = [x.abs() for x in v]
+
+        def kernel(t=3.0):
+            return clip_adam(p, m, v, grads, t, 1e-3)
+
+        def plain(t=3.0):
+            outs = [_adam_update(*x, t, 1e-3) for x in zip(p, m, v, grads)]
+            return [[o[k] for o in outs] for k in range(3)]
+
+        lib = [[x.clone() for x in xs] for xs in (p, m, v, grads)]
+        lib_steps = [torch.tensor(3.0, device="cuda") for _ in p]
+
+        def library():
+            torch._foreach_clamp_min_(lib[3], -1.0)
+            torch._foreach_clamp_max_(lib[3], 1.0)
+            torch._fused_adam_(lib[0], lib[3], lib[1], lib[2], [], lib_steps, lr=1e-3,
+                               beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-7,
+                               amsgrad=False, maximize=False)
+
+        err = max(float((a - b).abs().max()) for t in steps
+                  for x, y in zip(kernel(float(t)), plain(float(t))) for a, b in zip(x, y))
+        n = sum(x.numel() for x in p)
+        ms = device_ms(torch, kernel, reps)
+        ms_p = device_ms(torch, plain, 50)
+        ms_l = device_ms(torch, library, reps)
+        bound = (1e3 * 28 * n / PEAK_BYTES_PER_S, "bytes")
+        log(f"[clip + Adam {name}] {n} parameters in 12 leaves; kernel against the plain "
+            f"version at steps {list(steps)}: max abs {err:.1e} | card alone: kernel "
+            f"{1e3 * ms:.3f} us, plain {1e3 * ms_p:.1f} us, torch._fused_adam_ after a "
+            f"clamp {1e3 * ms_l:.3f} us; bound {1e3 * bound[0]:.3f} us, bytes")
+        check(err == 0, f"clip + Adam {name}: the kernel parts from _adam_update by {err}")
+        out[name] = (err, ms, ms_p, ms_l, bound)
+    return out
+
+
 def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int, one_way: int = 2,
               sidechain: int = 0) -> tuple:
     """``train()`` with the launch counts set to 0 just before and read just
@@ -1619,8 +1696,8 @@ def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int, one_way: int = 
     the one-way kernels ``one_way`` times a step each (a chain's two
     halves, for each protein of a multimer; none where the sidechain
     backmap builds the chain), the sidechain kernels ``sidechain`` times a
-    step each, the fused train kernels never. Returns (emap, history,
-    counts, s)."""
+    step each, the clip + Adam kernel once a step, the fused train kernels
+    never. Returns (emap, history, counts, s)."""
     emap = em.AngleDihedralCartesianEncoderMap(cvs, p)
     torch.cuda.synchronize()
     _build.launch_counts.clear()
@@ -1638,6 +1715,8 @@ def adc_train(em, _build, cvs: dict, p, tag: str, per_step: int, one_way: int = 
     want = sidechain * p.n_steps
     check(counts.get("sidechain_fwd", 0) == want and counts.get("sidechain_bwd", 0) == want,
           f"{tag}: sidechain kernels launched {counts}, expected {want} each")
+    check(counts.get("clip_adam", 0) == p.n_steps,
+          f"{tag}: clip + Adam kernel launched {counts}, expected {p.n_steps}")
     check(counts.get("fused_train", 0) == 0 and counts.get("fused_train_cluster", 0) == 0,
           f"{tag}: a fused train kernel ran")
     check(bool(np.isfinite(hist["loss"]).all()), f"{tag}: non-finite loss")
@@ -1698,6 +1777,7 @@ def phase_adc(em, fs, _build, run_dir: Path) -> dict:
     inputs = adc_kernel_inputs(emap, cvs, rows)
     kern = adc_kernel_check(fs, inputs, "adc", reps=20)
     one_way = hold_one_way()
+    clip_adam = hold_clip_adam()
     b = [torch.tensor(cvs[k][rows], device="cuda") for k in CV_KEYS]
     oracle = adc_oracle_check(emap, tuple(b), emap.state.step, "adc")
     ang = b[0].clone().requires_grad_(True)
@@ -1720,7 +1800,7 @@ def phase_adc(em, fs, _build, run_dir: Path) -> dict:
         + ", ".join(f"D={D} {t:.4f} ms" for D, t in sig.items())
         + f"; step {ms:.3f} ms, device busy {busy:.3f} ms")
     return dict(counts=counts, kernels=kern, ms=ms, wall=wall, oracle=oracle,
-                one_way=one_way)
+                one_way=one_way, clip_adam=clip_adam)
 
 
 def phase_adc_matrix(em, fs, _build, run_dir: Path) -> dict:
@@ -3468,6 +3548,15 @@ def main() -> int:
             launches=sum(leg.get("counts", {}).get(name, 0) for leg in adc_legs),
             max_abs_err=err, ms=ms, plain_ms=ms_p,
             bound_ms=b[0], bound_by=b[1], library_ms=None))
+    # the clip + Adam kernel at the sidechain configuration's 12 leaves
+    err, ms, ms_p, ms_l, b = adc_legs[0]["clip_adam"]["adc-sidechains-128-128-2"]
+    kernels.append(dict(
+        name="clip_adam", route="cuda", source="encodermap_tpu_torch/csrc/clip_adam.cu",
+        replaces="none: encodermap_tpu/train/core.py:62-77 optax.chain(clip, adam)",
+        launches=general["clip_adam"] + gen_f64["clip_adam"]
+        + sum(leg.get("counts", {}).get("clip_adam", 0) for leg in adc_legs),
+        max_abs_err=err, ms=ms, plain_ms=ms_p, bound_ms=b[0], bound_by=b[1],
+        library_ms=ms_l))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

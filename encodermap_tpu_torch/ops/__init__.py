@@ -3,7 +3,8 @@
 the analytic and blocked Cartesian costs, the float64 ADC gradient oracle
 ``adc_adjoint``, and the kernel modules, ``fused_sigmoid`` (sketch-map
 loss), ``fused_train`` (a chunk of EncoderMap steps), ``backmap``
-(``_OneWay``) and ``backmap_sidechains``. Counterpart of
+(``_OneWay``), ``backmap_sidechains`` and ``clip_adam`` (the general
+route's optimizer step). Counterpart of
 ``encodermap_tpu/ops``, with the same re-exports
 (``encodermap_tpu/ops/__init__.py:3-39``). The kernel modules declare their
 entry points with ``_build`` on import and build their CUDA libraries on

@@ -40,6 +40,7 @@ import torch
 
 from .._tracing import span
 from . import _build
+from .clip_adam import _adam_update
 from .distances import dsig_over_r, pairwise_dist, sig_value
 
 __all__ = [
@@ -261,17 +262,6 @@ def config_covered(p, params, input_dim: int = 0) -> bool:
         return False
     return all(scale is not None for scale in
                (p.auto_cost_scale, p.center_cost_scale, p.distance_cost_scale))
-
-
-def _adam_update(p_, m, v, g, t, lr, b1=0.9, b2=0.999, eps=1e-7, clip=1.0):
-    """``optax.chain(clip(1), adam(lr, eps=1e-7))`` on one tensor at step
-    ``t`` (1-based); returns ``(p, m, v)``."""
-    g = torch.clamp(g, -clip, clip)
-    m = b1 * m + (1.0 - b1) * g
-    v = b2 * v + (1.0 - b2) * g * g
-    mhat = m / (1.0 - b1 ** t)
-    vhat = v / (1.0 - b2 ** t)
-    return p_ - lr * mhat / (torch.sqrt(vhat) + eps), m, v
 
 
 def split_params(params: dict) -> tuple[list, int]:

@@ -40,6 +40,7 @@ import torch
 
 from ..misc.profiling import span
 from ..nn import TPLayer
+from ..ops.clip_adam import clip_adam
 
 __all__ = [
     "ArrayBatchSource",
@@ -119,7 +120,10 @@ class ClipAdam:
     """``optax.chain(optax.clip(clip_value), optax.adam(lr, eps=1e-7))``:
     element-wise clip, then Adam with bias correction, eps added after
     ``sqrt(v_hat)``. ``learning_rate`` is a float or a schedule
-    ``step -> lr`` evaluated at the step count before the update."""
+    ``step -> lr`` evaluated at the step count before the update. A step
+    is :func:`~encodermap_tpu_torch.ops.clip_adam.clip_adam` over the
+    leaves: one kernel launch for all of them on the card, the plain
+    ``_adam_update`` a leaf on the CPU."""
 
     def __init__(self, learning_rate: Union[float, Callable],
                  clip_value: float = 1.0, b1: float = 0.9, b2: float = 0.999,
@@ -141,21 +145,14 @@ class ClipAdam:
     def update(self, grads: Any, opt_state: dict, params: Any
                ) -> tuple[Any, dict]:
         """One step: ``(new_params, new_opt_state)``."""
-        from ..ops.fused_train import _adam_update
-
         count = opt_state["count"]
-        lr = self.lr_at(count)
-        t = float(count + 1)
-        out = [_adam_update(p, m, v, g, t, lr, self.b1, self.b2, self.eps,
-                            self.clip_value)
-               for p, m, v, g in zip(tree_leaves(params),
-                                     tree_leaves(opt_state["mu"]),
-                                     tree_leaves(opt_state["nu"]),
-                                     tree_leaves(grads))]
-        new_params = tree_unflatten(params, [o[0] for o in out])
-        new_state = {"count": count + 1,
-                     "mu": tree_unflatten(params, [o[1] for o in out]),
-                     "nu": tree_unflatten(params, [o[2] for o in out])}
+        p, m, v = clip_adam(tree_leaves(params), tree_leaves(opt_state["mu"]),
+                            tree_leaves(opt_state["nu"]), tree_leaves(grads),
+                            float(count + 1), self.lr_at(count), self.b1, self.b2,
+                            self.eps, self.clip_value)
+        new_params = tree_unflatten(params, p)
+        new_state = {"count": count + 1, "mu": tree_unflatten(params, m),
+                     "nu": tree_unflatten(params, v)}
         return new_params, new_state
 
 

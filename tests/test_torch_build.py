@@ -21,8 +21,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 #: every ``csrc/*.cu`` of the port
-LIBRARIES = ["backmap_one_way", "backmap_sidechains", "fused_train", "fused_train_cluster",
-             "sigmoid_loss"]
+LIBRARIES = ["backmap_one_way", "backmap_sidechains", "clip_adam", "fused_train",
+             "fused_train_cluster", "sigmoid_loss"]
 
 
 @pytest.mark.parametrize("first", ["encodermap_tpu_torch.ops.backmap",

@@ -1371,3 +1371,176 @@ def test_cluster_kernel_holds_float64_over_100_steps(cuda, seed):
     res = fused_drift_runs(emt, ft, "cube", 256, seed, (10, 100), ("fused_train_cluster",))
     assert hold_f64(f"[cube B=256 seed {seed}]", res, (10, 100),
                     run="fused_train_cluster") >= 1
+
+
+# ------------------------------------------------------- clip + Adam kernel
+def _adc_leaf_shapes(width):
+    """The 12 leaves of an ADC at [128,128,2] with a ``width``-wide input, in
+    tree order (decoder, then encoder; bias before kernel)."""
+    dec = [(2, 128), (128, 128), (128, width)]
+    enc = [(width, 128), (128, 128), (128, 2)]
+    return [s for k in dec + enc for s in ((k[1],), k)]
+
+
+#: the benchmark's two ADC configurations: 304 input columns (58 angles, 57
+#: dihedrals, 37 side dihedrals on the unit circle) and 412 (206 columns)
+ADC_LEAVES = {"adc-128-128-2": _adc_leaf_shapes(304),
+              "adc-sidechains-128-128-2": _adc_leaf_shapes(412)}
+
+
+def _adam_leaves(shapes, dtype, step, device, seed=0):
+    """p, m, v and g for leaves of ``shapes``: gradients of scale 1.5, many
+    past the clip, the 2-wide bias's gradient zero, moments as after
+    ``step - 1`` steps."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(s, scale=1.0):
+        return (torch.randn(s, generator=g, dtype=torch.float64) * scale).to(dtype).to(device)
+
+    p = [rand(s) for s in shapes]
+    grads = [torch.zeros(s, dtype=dtype, device=device) if s == (2,) else rand(s, 1.5)
+             for s in shapes]
+    m = [torch.zeros_like(x) if step == 1 else rand(x.shape, 0.1) for x in p]
+    v = [torch.zeros_like(x) if step == 1 else rand(x.shape, 0.1).abs() for x in p]
+    return p, m, v, grads
+
+
+def _plain_adam(p, m, v, grads, step, lr=1e-3):
+    from encodermap_tpu_torch.ops.clip_adam import _adam_update
+
+    out = [_adam_update(*x, float(step), lr) for x in zip(p, m, v, grads)]
+    return [[o[k] for o in out] for k in range(3)]
+
+
+@pytest.mark.parametrize("step", [1, 2, 10, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("config", sorted(ADC_LEAVES))
+def test_clip_adam_kernel_is_adam_update_bit_for_bit(cuda, config, dtype, step):
+    """The kernel against ``_adam_update`` on the card, every leaf of both
+    ADC configurations, bit for bit: clipped gradients, a zero gradient, and
+    a kernel's gradient handed over transposed (not contiguous); one
+    launch, and the inputs keep their values."""
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.ops.clip_adam import clip_adam
+
+    p, m, v, grads = _adam_leaves(ADC_LEAVES[config], dtype, step, cuda)
+    grads[3] = grads[3].t().contiguous().t()
+    assert not grads[3].is_contiguous()
+    assert max(float(x.abs().max()) for x in grads) > 1.0
+    before = [x.clone() for x in p + m + v + grads]
+    want = _plain_adam(p, m, v, grads, step)
+    n = _build.launch_counts["clip_adam"]
+    got = clip_adam(p, m, v, grads, float(step), 1e-3)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["clip_adam"] == n + 1
+    for kind, (a, b) in enumerate(zip(got, want)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert x.dtype == dtype and x.shape == y.shape and x.is_contiguous()
+            assert torch.equal(x, y), (config, kind, i, float((x - y).abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(before, p + m + v + grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_clip_adam_kernel_over_many_tables_and_unaligned_views(cuda, dtype):
+    """100 leaves of ragged sizes (3 to 2,843 elements) take three launches of
+    at most 48 leaves; gradients that are views of one flat tensor at odd
+    offsets (as the dp route's all-reduced gradients are) go element by
+    element; bit for bit ``_adam_update``."""
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.ops.clip_adam import clip_adam
+
+    shapes = [(1 + 29 * (i % 101),) if i % 3 else (i % 7 + 1, 3) for i in range(100)]
+    p, m, v, grads = _adam_leaves(shapes, dtype, 7, cuda, seed=1)
+    flat = torch.cat([torch.zeros(1, dtype=dtype, device=cuda)]
+                     + [x.reshape(-1) for x in grads])
+    views, i = [], 1
+    for x in grads:
+        views.append(flat[i:i + x.numel()].view_as(x))
+        i += x.numel()
+    want = _plain_adam(p, m, v, views, 7, lr=3e-4)
+    n = _build.launch_counts["clip_adam"]
+    got = clip_adam(p, m, v, views, 7.0, 3e-4)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["clip_adam"] == n + 3
+    for a, b in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_clip_adam_update_launches_one_kernel_on_the_card(cuda):
+    """``ClipAdam.update`` over the sidechain ADC's 12 leaves puts one
+    kernel on the card, the clip + Adam kernel, and nothing else (traced in
+    a process of its own: CUPTI may stop recording in a process that traced
+    much before)."""
+    import json
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+
+    code = textwrap.dedent("""
+        import json
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from tests.test_torch_cuda import ADC_LEAVES, _adam_leaves
+        from encodermap_tpu_torch.train.core import ClipAdam, tree_unflatten
+
+        p, m, v, g = _adam_leaves(ADC_LEAVES["adc-sidechains-128-128-2"], torch.float32, 3,
+                                  torch.device("cuda"))
+        tree = lambda xs: tree_unflatten({"leaves": list(range(12))}, xs)
+        opt, state = ClipAdam(1e-3), {"count": 2, "mu": tree(m), "nu": tree(v)}
+        opt.update(tree(g), state, tree(p))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            opt.update(tree(g), state, tree(p))
+            torch.cuda.synchronize()
+        print(json.dumps([e.name for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]))
+    """)
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    names = json.loads(run.stdout.splitlines()[-1])
+    assert len(names) == 1 and "clip_adam_kernel" in names[0], names
+
+
+def test_adc_train_launches_one_clip_adam_a_step_and_keeps_the_old_state(cuda, tmp_path):
+    """A three-step ADC chunk at trp-cage scale through ``train()``: one
+    clip + Adam launch a step, and the state it started from (parameters
+    and both moments) keeps its values."""
+    import encodermap_tpu_torch as em
+    from encodermap_tpu_torch.ops import _build
+    from encodermap_tpu_torch.train.core import tree_leaves
+
+    p = em.ADCParameters(main_path=str(tmp_path), n_neurons=[128, 128, 2], batch_size=256,
+                         n_steps=3, steps_per_scan=3, seed=0, cartesian_pwd_start=1,
+                         cartesian_pwd_step=3)
+    emap = em.AngleDihedralCartesianEncoderMap(_adc_cvs(20, 1024), p, device=cuda)
+    old = tree_leaves((emap.state.params, emap.state.opt_state["mu"],
+                       emap.state.opt_state["nu"]))
+    kept = [x.clone() for x in old]
+    n = _build.launch_counts["clip_adam"]
+    emap.train()
+    torch.cuda.synchronize()
+    assert _build.launch_counts["clip_adam"] - n == 3
+    assert emap.state.opt_state["count"] == 3
+    assert all(torch.equal(a, b) for a, b in zip(old, kept))
+    assert not all(torch.equal(a, b) for a, b in zip(tree_leaves(emap.state.params), kept))
+
+
+def test_clip_adam_wrapper_refuses_what_it_does_not_take(cuda):
+    """Half precision, two types, two devices, a non-contiguous parameter
+    and leaves of different shapes raise before any launch."""
+    from encodermap_tpu_torch.ops.clip_adam import clip_adam
+
+    p, m, v, g = _adam_leaves([(5, 3), (3,)], torch.float32, 2, cuda)
+    with pytest.raises(TypeError):
+        clip_adam([x.half() for x in p], m, v, g, 2.0, 1e-3)
+    with pytest.raises(TypeError):
+        clip_adam(p, m, v, [g[0].double(), g[1]], 2.0, 1e-3)
+    with pytest.raises(ValueError):
+        clip_adam(p, m, v, [g[0].cpu(), g[1]], 2.0, 1e-3)
+    with pytest.raises(ValueError):
+        clip_adam([p[0].t().contiguous().t(), p[1]], m, v, g, 2.0, 1e-3)
+    with pytest.raises(ValueError):
+        clip_adam(p, m, v, [g[0][:4], g[1]], 2.0, 1e-3)

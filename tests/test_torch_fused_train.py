@@ -557,3 +557,135 @@ def test_cluster_pair_phase_near_u_1_within_3x_of_jax_from_float64(periodic, sig
     assert err_m <= 3 * err_j, (err_m, err_j)
     err_m, err_j = np.abs(g_m - g64).max(), np.abs(np.asarray(g_j) - g64).max()
     assert err_m <= 3 * err_j, (err_m, err_j)
+
+
+# ------------------------------------------- clip + Adam over a parameter tree
+def _adam_tree_case(dtype, step, seed=0):
+    """A small tree with a 1-element leaf, odd widths and a zero gradient,
+    gradients up to ~3x past the clip, moments as after ``step - 1`` steps."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"encoder": [{"kernel": (5, 3), "bias": (3,)}, {"kernel": (3, 1), "bias": (1,)}],
+              "decoder": [{"kernel": (1, 7), "bias": (7,)}, {"kernel": (7, 5), "bias": (5,)}]}
+    rand = lambda s, scale=1.0: (torch.randn(s, generator=g, dtype=torch.float64) * scale
+                                 ).to(dtype)
+    params = {k: [{n: rand(s) for n, s in layer.items()} for layer in v]
+              for k, v in shapes.items()}
+    grads = {k: [{n: rand(s, 3.0) for n, s in layer.items()} for layer in v]
+             for k, v in shapes.items()}
+    grads["decoder"][0]["bias"] = torch.zeros(7, dtype=dtype)
+    first = step == 1
+    mu = {k: [{n: torch.zeros_like(x) if first else rand(x.shape, 0.1)
+               for n, x in layer.items()} for layer in v] for k, v in params.items()}
+    nu = {k: [{n: torch.zeros_like(x) if first else rand(x.shape, 0.1).abs()
+               for n, x in layer.items()} for layer in v] for k, v in params.items()}
+    return params, grads, {"count": step - 1, "mu": mu, "nu": nu}
+
+
+@pytest.mark.parametrize("schedule", [False, True], ids=["lr", "schedule"])
+@pytest.mark.parametrize("step", [1, 2, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_clip_adam_cpu_route_is_adam_update_bit_for_bit(dtype, step, schedule):
+    """``ClipAdam.update`` on CPU tensors is ``_adam_update`` leaf by leaf,
+    bit for bit, with the learning rate of the count before the step, and
+    keeps the tree's layout and the moments' count."""
+    from encodermap_tpu_torch.ops.clip_adam import _adam_update
+    from encodermap_tpu_torch.train.core import ClipAdam, tree_leaves
+
+    lr = (lambda count: 1e-3 / (1.0 + 0.01 * count)) if schedule else 1e-3
+    opt = ClipAdam(lr, clip_value=1.0)
+    params, grads, state = _adam_tree_case(dtype, step)
+    assert max(float(x.abs().max()) for x in tree_leaves(grads)) > 1.0
+    new_p, new_state = opt.update(grads, state, params)
+    assert new_state["count"] == step
+    lr_now = opt.lr_at(step - 1)
+    for i, (p, m, v, gr) in enumerate(zip(*(tree_leaves(x) for x in (
+            params, state["mu"], state["nu"], grads)))):
+        want = _adam_update(p, m, v, gr, float(step), lr_now, 0.9, 0.999, 1e-7, 1.0)
+        got = [tree_leaves(x)[i] for x in (new_p, new_state["mu"], new_state["nu"])]
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and a.shape == p.shape
+            assert torch.equal(a, b), i
+    for part in ("encoder", "decoder"):
+        for a, b in zip(new_p[part], params[part]):
+            assert sorted(a) == sorted(b)
+
+
+def test_clip_adam_leaves_the_old_state_unchanged():
+    """The step is out of place: the parameters, moments and gradients it
+    was given keep their values."""
+    from encodermap_tpu_torch.train.core import ClipAdam, tree_leaves
+
+    params, grads, state = _adam_tree_case(torch.float32, 2)
+    before = [x.clone() for x in tree_leaves((params, grads, state["mu"], state["nu"]))]
+    new_p, new_state = ClipAdam(1e-3).update(grads, state, params)
+    after = tree_leaves((params, grads, state["mu"], state["nu"]))
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert not any(a is b for a, b in zip(tree_leaves(new_p), tree_leaves(params)))
+    assert state["count"] == 1 and new_state["count"] == 2
+
+
+@pytest.mark.parametrize("sizes,launches", [
+    # the backbone ADC's 12 leaves in tree order (304-wide input), one table
+    ([128, 256, 128, 16384, 304, 38912, 128, 38912, 128, 16384, 2, 256],
+     [(list(range(12)), [0, 1, 2, 3, 19, 20, 58, 59, 97, 98, 114, 115], 116)]),
+    # empty leaves take no block and no place
+    ([0, 1024, 0, 1025, 3], [([1, 3, 4], [0, 1, 3], 4)]),
+    ([0, 0], []),
+], ids=["adc", "empty", "all-empty"])
+def test_plan_launches_prefix_offsets(sizes, launches):
+    from encodermap_tpu_torch.ops.clip_adam import CHUNK, plan_launches
+
+    assert CHUNK == 1024
+    assert plan_launches(sizes) == launches
+
+
+@pytest.mark.parametrize("n,tables", [(48, [48]), (49, [48, 1]), (100, [48, 48, 4])])
+def test_plan_launches_splits_past_one_table(n, tables):
+    """More leaves than one table holds take one launch a full table, each
+    table's block offsets counted from its own first leaf."""
+    from encodermap_tpu_torch.ops.clip_adam import TABLE_LEAVES, plan_launches
+
+    sizes = [1 + 700 * (i % 5) for i in range(n)]
+    plan = plan_launches(sizes)
+    assert TABLE_LEAVES == 48 and [len(g) for g, _, _ in plan] == tables
+    assert [i for g, _, _ in plan for i in g] == list(range(n))
+    for group, firsts, blocks in plan:
+        per = [-(-sizes[i] // 1024) for i in group]
+        assert firsts == [sum(per[:k]) for k in range(len(group))]
+        assert blocks == sum(per)
+
+
+def test_clip_adam_table_rows():
+    """Ten int64 a leaf: the seven data pointers, the count, the first block
+    and whether all seven pointers are 16-byte aligned (a view one element
+    into a buffer is not)."""
+    from encodermap_tpu_torch.ops.clip_adam import _table
+
+    buf = torch.zeros(64)
+    aligned = [torch.zeros(6) for _ in range(7)]
+    shifted = aligned[:3] + [buf[1:7]] + aligned[4:]
+    table = list(_table([aligned, shifted], [0, 1], [0, 5]))
+    assert len(table) == 20
+    assert table[:7] == [x.data_ptr() for x in aligned] and table[7:10] == [6, 0, 1]
+    assert table[13] == buf.data_ptr() + 4 and table[17:20] == [6, 5, 0]
+
+
+@pytest.mark.parametrize("step", [1, 2, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_clip_adam_scalars_are_the_card_operations_scalars(dtype, step):
+    """The kernel's scalars: in float32 each one a float32 number (the
+    Python scalar rounded as PyTorch rounds it), the bias corrections'
+    reciprocals taken in double and rounded once; in float64 Python's own
+    numbers."""
+    from encodermap_tpu_torch.ops.clip_adam import _scalars
+
+    s = _scalars(dtype, float(step), 1e-3, 0.9, 0.999, 1e-7, 1.0)
+    if dtype == torch.float64:
+        assert s == (1e-3, 0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999, 1.0 / (1.0 - 0.9 ** step),
+                     1.0 / (1.0 - 0.999 ** step), 1e-7, 1.0)
+    else:
+        f = np.float32
+        assert all(float(f(x)) == x for x in s)
+        assert s[2] == float(f(1.0 - 0.9)) and s[4] == float(f(1.0 - 0.999))
+        assert s[5] == float(f(1.0 / (1.0 - 0.9 ** step)))
+        assert s[6] == float(f(1.0 / (1.0 - 0.999 ** step)))
