@@ -41,7 +41,8 @@ same steps on one device. ``phase_adc`` also holds the trained ADC's step
 gradients to the float64 oracle ``ops/adc_adjoint.py::hand_adc_step`` on
 the card (the kernels within 3x of the plain version's distance from
 it), and holds the backmap's one-way kernels against their plain versions
-at trp-cage's two halves and at 236 bonds, B=256 (``hold_one_way``), and
+at trp-cage's and ubiquitin's two halves and at 236 bonds, B=256
+(``hold_one_way``), and
 the sidechain leg the sidechain backmap's kernels at trp-cage, B=256
 (``hold_sidechain``), and the clip + Adam kernel bit for bit against its
 plain version at both ADC configurations' leaves (``hold_clip_adam``);
@@ -1446,11 +1447,13 @@ def one_way_bytes(B: int, n: int, itemsize: int = 4) -> tuple[int, int]:
     return B * (n + 2 * atoms) * itemsize, B * (2 * n + 3 * atoms) * itemsize
 
 
-def hold_one_way(B: int = 256, ns: tuple = (28, 29, 236), reps: int = 200) -> dict:
+def hold_one_way(B: int = 256, ns: tuple = (28, 29, 112, 113, 236),
+                 reps: int = 200) -> dict:
     """The backmap's one-way kernels (``csrc/backmap_one_way.cu``) against
     their plain versions on the same card tensors, float32, at B=256 and n
-    = 28, 29 (trp-cage's two halves, the ADC step's shapes) and 236 (eight
-    32-bond tiles, every carry). Up to 32 bonds, where the kernels'
+    = 28, 29 (trp-cage's two halves, the ADC step's shapes), 112, 113
+    (a ubiquitin chain's two halves, the multimer diubiquitin step's
+    shapes) and 236 (eight 32-bond tiles, every carry). Up to 32 bonds, where the kernels'
     warp scan associates as the plain version's doubling rounds, the output
     and both cotangents agree to 1e-5 of each tensor's largest entry. At
     every n the port's rule for kernels holds: err(kernels, f64) <= 3
@@ -1907,12 +1910,13 @@ def rigid_transform(seed: int) -> np.ndarray:
 
 
 def dimer_cvs(n_frames: int, lengths: tuple = (20, 20), seed: int = 0,
-              device: str = "cuda") -> dict:
+              device: str = "cuda", side: int | None = None) -> dict:
     """Synthetic multimer CVs: each protein's internals drawn from ``seed``
     as ``adc_cvs`` draws them, concatenated protein by protein; each
     protein backmapped from its own internals (float64 on ``device``) and
     the others placed by fixed rigid transforms (``tests/test_multimer.py``
-    builds its dimer so); trp-cage's 37 sidechain dihedrals per protein."""
+    builds its dimer so); ``side`` sidechain dihedrals per protein,
+    trp-cage's 37 by default."""
     from encodermap_tpu_torch.ops.backmap import backmap_multimer
 
     rng = np.random.default_rng(seed)
@@ -1927,8 +1931,9 @@ def dimer_cvs(n_frames: int, lengths: tuple = (20, 20), seed: int = 0,
         cart = backmap_multimer(list(lengths), *(torch.tensor(np.ascontiguousarray(v),
                                                               device=device)
                                                  for v in (dist, ang, dih, mats)))
-    side = rng.uniform(-np.pi, np.pi,
-                       (n, len(lengths) * sum(TRP_CAGE_SIDECHAIN_INFO.values())))
+    if side is None:
+        side = sum(TRP_CAGE_SIDECHAIN_INFO.values())
+    side = rng.uniform(-np.pi, np.pi, (n, len(lengths) * side))
     return {k: np.asarray(v, np.float32) for k, v in zip(
         CV_KEYS, (ang, dih, cart.cpu().numpy(), dist, side))}
 
@@ -2052,7 +2057,13 @@ def phase_adc_multimer(em, fs, _build, run_dir: Path) -> dict:
     D=780 (the pairs of 40 CAs). Checks the launches, generate's shape and
     each protein's bond lengths (the second's once its decoded transform is
     undone), a checkpoint round trip; times the step; holds the kernels at
-    both widths."""
+    both widths. Then diubiquitin as the benchmark's cell
+    ``adc-diubi-dimer-b256`` trains it (``multimer_lengths=[76, 76]``,
+    161 side dihedrals a chain, 1024 frames, 20 steps in 2 chunks): checks
+    the launches (the one-way kernels at halves of 113 and 112 dihedrals,
+    four a step each) and holds kernels 2-3 at its widths, D=1,224
+    periodic and the 152^2 CA distance-matrix rows, against float64 as
+    ``phase_featurize`` holds config 4's."""
     from encodermap_tpu_torch.ops.backmap import backmap_multimer
 
     tag = "adc multimer"
@@ -2098,7 +2109,17 @@ def phase_adc_multimer(em, fs, _build, run_dir: Path) -> dict:
         f"{ms_b:.4f} ms; sigmoid kernels fwd+bwd "
         + ", ".join(f"D={D} {v['fwd'][1] + v['bwd'][1]:.4f} ms" for (D, _), v in kern.items())
         + f"; step {ms:.3f} ms, device busy {busy:.3f} ms")
-    return dict(counts=counts, kernels=kern, ms=ms, wall=wall)
+
+    ubi = dimer_cvs(1024, lengths=(76, 76), seed=6, side=161)
+    p = adc_params(em, run_dir / "diubi", 20, 10,
+                   multimer_training="homogeneous_transformation", multimer_lengths=[76, 76])
+    emap, _, counts_u, _ = adc_train(em, _build, ubi, p, f"{tag} diubi", 2, one_way=4)
+    inputs = adc_kernel_inputs(emap, ubi, np.arange(256))
+    check(set(inputs) == {(1224, 2 * math.pi), (152 ** 2, float("inf"))},
+          f"{tag} diubi: kernel widths {sorted(inputs)}")
+    kern_u = adc_kernel_check(fs, inputs, f"{tag} diubi", oracle=True)
+    counts = {k: counts.get(k, 0) + counts_u.get(k, 0) for k in counts.keys() | counts_u.keys()}
+    return dict(counts=counts, kernels=kern, kernels_diubi=kern_u, ms=ms, wall=wall)
 
 
 #: M1-linked diubiquitin (BASELINE config 4): 152 residues, 1,066 atoms,

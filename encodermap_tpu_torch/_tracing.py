@@ -14,7 +14,9 @@ chunk trainer ``trainer.draw`` and ``trainer.launch`` (fused kernel) or
 ``step.metrics``; in the ADC's forward and losses ``adc.encode``,
 ``adc.decode``, ``adc.backmap`` and ``adc.losses``, and in the sidechain
 backmap's backward (``reconstruct_sidechains=True``, under
-``step.backward``) ``adc.backmap_backward``. Spans are **off by default**,
+``step.backward``) and in the multimer backmap's backward
+(``multimer_training``, under ``step.backward``) ``adc.backmap_backward``,
+both opened by :func:`backward_in_span`. Spans are **off by default**,
 and then cost one flag check. Two ways to see them:
 
 - ``misc/profiling.py``'s ``trace`` and ``profile_steps`` switch them on
@@ -38,9 +40,16 @@ and then cost one flag check. Two ways to see them:
 **Counters.** :func:`counter` returns a named ``collections.Counter`` of
 the process; :data:`launches` counts the port's kernel launches by kernel
 name (``ops/_build.py::launch_counts`` is the same object, and
-``ops/_build.py::launch`` alone adds to it), and, while the spans are on,
-``sidechain_backmap`` the sidechain backmap's calls and rows forward and
-backward (``ops/backmap_sidechains.py::_SidechainBackmap``).
+``ops/_build.py::launch`` alone adds to it), and, while the spans are on
+(:func:`count_rows`), ``sidechain_backmap`` the sidechain backmap's calls
+and rows forward and backward (``ops/backmap_sidechains.py``) and
+``multimer_backmap`` the multimer backmap's, with the proteins it placed
+(``ops/backmap.py::backmap_multimer``).
+
+**A backward's span.** :func:`backward_in_span` runs a differentiable
+function so that its whole backward, whatever operations and autograd
+functions it holds, runs inside one span; ``misc/profiling.py`` re-exports
+the spans and counters above, not this helper of the ops.
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ from typing import Any, Iterator, NamedTuple, Optional
 import torch
 
 __all__ = ["span", "record_spans", "spans_enabled", "span_totals", "SpanTotal", "counter",
-           "launches"]
+           "launches", "count_rows", "backward_in_span"]
 
 # ----------------------------------------------------------------- counters
 _counters: dict[str, collections.Counter] = {}
@@ -156,3 +165,60 @@ def span_totals() -> dict[str, SpanTotal]:
     """A snapshot of every span name's :class:`SpanTotal` so far."""
     with _lock:
         return {k: SpanTotal(c, t * 1e-9, s * 1e-9) for k, (c, t, s) in _totals.items()}
+
+
+# ------------------------------------------------------- a backward's span
+def count_rows(name: str, way: str, rows: int, **more: int) -> None:
+    """While the spans are on, one call and its ``rows`` in the counter
+    ``name``, under ``way`` and ``rows_<way>`` (``way`` is ``"fwd"`` or
+    ``"bwd"``), and each of ``more`` beside them; off, a flag check."""
+    if not _on:
+        return
+    count = counter(name)
+    count[way] += 1
+    count["rows_" + way] += rows
+    for key, n in more.items():
+        count[key] += n
+
+
+class _InSpan(torch.autograd.Function):
+    """``fn(*inputs)`` built as a graph of its own on detached inputs; the
+    backward runs autograd over that saved graph inside the span. The
+    operations and their order are those of autograd through ``fn``:
+    nothing is recomputed, and each input reaches the output through the
+    same uses, so its gradient is the same sum; an input the graph does not
+    use gets none."""
+
+    @staticmethod
+    def forward(ctx, fn, name, count, more, *inputs):
+        count_rows(count, "fwd", inputs[0].shape[0], **more)
+        needs = ctx.needs_input_grad[4:]
+        leaves = [x.detach().requires_grad_(need) for x, need in zip(inputs, needs)]
+        with torch.enable_grad():
+            ctx.out = fn(*leaves)
+        ctx.leaves = [x for x, need in zip(leaves, needs) if need]
+        ctx.name, ctx.count = name, count
+        return ctx.out.detach()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[4:]
+        with span(ctx.name):
+            # the graph is kept for a second backward through the caller's
+            # graph, as autograd through ``fn`` would allow
+            taken = iter(torch.autograd.grad(ctx.out, ctx.leaves, grad,
+                                             retain_graph=True, allow_unused=True))
+            grads = [next(taken) if need else None for need in needs]
+        count_rows(ctx.count, "bwd", grad.shape[0])
+        return (None,) * 4 + tuple(grads)
+
+
+def backward_in_span(name: str, count: str, fn, *inputs: torch.Tensor,
+                     **more: int) -> torch.Tensor:
+    """``fn(*inputs)``, one tensor of rows, whose backward runs inside the
+    span ``name``, spans on or off alike: one route whatever the spans. While
+    the spans are on, the counter ``count`` counts each call and its rows
+    forward and backward (:func:`count_rows`; ``more`` forward). Take it
+    where a gradient is taken; without one, call ``fn`` itself."""
+    return _InSpan.apply(fn, name, count, more, *inputs)

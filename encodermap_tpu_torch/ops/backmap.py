@@ -30,7 +30,10 @@ port takes the forms the JAX package takes on the CPU. Quaternions are
 
 * :func:`backmap_multimer` rebuilds each protein of a multimer with
   :func:`backmap` and places proteins 2..N by ``(B, 4, 4)`` homogeneous
-  transforms, a plain full-float32 product (TF32 stays off).
+  transforms, a plain full-float32 product (TF32 stays off). Wherever a
+  gradient is taken its whole backward runs under the span
+  ``adc.backmap_backward`` (``_tracing.backward_in_span``), on either
+  device and with the spans on or off.
 * :func:`guess_amide_H`, :func:`guess_amide_O` and :func:`merge_cartesians`
   add the sp2 hydrogens and oxygens; :func:`rotation_matrices` and
   :func:`straight_tetrahedral_chain` are the JAX package's helpers.
@@ -39,12 +42,14 @@ port takes the forms the JAX package takes on the CPU. Quaternions are
 from __future__ import annotations
 
 import ctypes
+import functools
 from math import pi
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .._tracing import backward_in_span
 from . import _build
 
 __all__ = [
@@ -494,7 +499,27 @@ def backmap_multimer(protein_lengths: Sequence[int], distances: torch.Tensor,
 
     Returns:
         ``(B, sum 3L_i, 3)``.
+
+    Wherever a gradient is taken, the call goes through
+    ``_tracing.backward_in_span``: its backward (both ways of every chain's
+    ``_OneWay``, ``chain_in_plane``'s and the placement product's) runs
+    inside the span ``adc.backmap_backward``, as autograd through
+    :func:`_backmap_multimer_plain` runs it, and while the spans are on the
+    counter ``multimer_backmap`` counts its calls, rows and proteins.
     """
+    inputs = (distances, angles, dihedrals, matrices)
+    fn = functools.partial(_backmap_multimer_plain, list(protein_lengths), gather=gather)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return backward_in_span("adc.backmap_backward", "multimer_backmap", fn, *inputs,
+                                proteins=len(protein_lengths))
+    return fn(*inputs)
+
+
+def _backmap_multimer_plain(protein_lengths: Sequence[int], distances: torch.Tensor,
+                            angles: torch.Tensor, dihedrals: torch.Tensor,
+                            matrices: torch.Tensor, gather: Optional[Callable] = None
+                            ) -> torch.Tensor:
+    """:func:`backmap_multimer`'s operations, differentiated by autograd."""
     outs = []
     d0 = a0 = di0 = 0
     for i, L in enumerate(protein_lengths):

@@ -27,7 +27,8 @@ reference's ``BackMapLayerWithSidechains``, ``models/layers.py:219-902``):
   ``sidechain_fwd`` and ``sidechain_bwd``), CPU tensors through the plain
   version ``_backmap_sidechains_fast_plain``; wherever a gradient is taken
   the backward runs under the span ``adc.backmap_backward``
-  (``_SidechainBackmap``).
+  (``_SidechainBackmap`` on the card, ``_tracing.backward_in_span`` on the
+  CPU).
 
 PyTorch has no ``associative_scan``: in the plain version both scans run
 through ``ops/backmap.py``'s doubling scan (``_cumulative_quats``,
@@ -43,6 +44,7 @@ derived by hand (``_SidechainBackmap``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from math import pi
 from typing import NamedTuple, Optional
 
@@ -50,7 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._tracing import counter, span, spans_enabled
+from .._tracing import backward_in_span, count_rows, span
 from . import _build
 from .backmap import _cumulative_quats, _quat_compose, _quat_rotate
 
@@ -579,63 +581,35 @@ def _sidechain_bwd(spec: SidechainBackmapSpec, inputs, quat: torch.Tensor,
 
 
 class _SidechainBackmap(torch.autograd.Function):
-    """:func:`backmap_sidechains_fast` wherever a gradient is taken, and on
-    the card always. Its backward runs under the span
+    """:func:`backmap_sidechains_fast` on the card: one kernel each way
+    (``csrc/backmap_sidechains.cu``; launch counters ``sidechain_fwd`` and
+    ``sidechain_bwd``). The forward saves each bond's rotation and heading
+    (5 values a bond: 2.3 kB a frame in float32 on trp-cage); the backward
+    is the hand-derived adjoint of the fast form (the kernels' source
+    derives it), takes the gradients of all six inputs, runs under the span
     ``adc.backmap_backward`` and is not differentiated again (a second
     derivative raises). While the spans are on it counts its calls and rows
     forward (``fwd``, ``rows_fwd``) and backward (``bwd``, ``rows_bwd``) in
-    the counter ``sidechain_backmap``.
-
-    * ``kernel`` (CUDA tensors): one kernel each way
-      (``csrc/backmap_sidechains.cu``; launch counters ``sidechain_fwd`` and
-      ``sidechain_bwd``). The forward saves each bond's rotation and heading
-      (5 values a bond: 2.3 kB a frame in float32 on trp-cage); the backward
-      is the hand-derived adjoint of the fast form (the kernels' source
-      derives it) and takes the gradients of all six inputs.
-    * CPU tensors: the forward builds the plain version's graph on detached
-      inputs, and the backward runs autograd over that saved graph. The
-      operations and their order are those of autograd through the plain
-      version: nothing is recomputed, and each input that takes a gradient
-      reaches the coordinates through one use, so its gradient is the same
-      sum; an input the graph does not use (of width 0) gets none."""
+    the counter ``sidechain_backmap``, as ``_tracing.backward_in_span``
+    counts the CPU's."""
 
     @staticmethod
-    def forward(ctx, spec, kernel, *inputs):
-        if spans_enabled():
-            count = counter("sidechain_backmap")
-            count["fwd"] += 1
-            count["rows_fwd"] += inputs[0].shape[0]
-        ctx.spec, ctx.kernel = spec, kernel
-        if kernel:
-            out, quat, head = _sidechain_fwd(spec, inputs)
-            ctx.save_for_backward(*inputs, quat, head)
-            return out
-        needs = ctx.needs_input_grad[2:]
-        leaves = [x.detach().requires_grad_(need) for x, need in zip(inputs, needs)]
-        with torch.enable_grad():
-            ctx.out = _backmap_sidechains_fast_plain(spec, *leaves)
-        ctx.leaves = [x for x, need in zip(leaves, needs) if need]
-        return ctx.out.detach()
+    def forward(ctx, spec, *inputs):
+        count_rows("sidechain_backmap", "fwd", inputs[0].shape[0])
+        ctx.spec = spec
+        out, quat, head = _sidechain_fwd(spec, inputs)
+        ctx.save_for_backward(*inputs, quat, head)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        needs = ctx.needs_input_grad[2:]
+        needs = ctx.needs_input_grad[1:]
         with span("adc.backmap_backward"):
-            if ctx.kernel:
-                *inputs, quat, head = ctx.saved_tensors
-                grads = _sidechain_bwd(ctx.spec, inputs, quat, head, grad)
-            else:
-                # the graph is kept for a second backward through the step's
-                # graph, as autograd through the plain version would allow
-                taken = iter(torch.autograd.grad(ctx.out, ctx.leaves, grad,
-                                                 retain_graph=True, allow_unused=True))
-                grads = [next(taken) if need else None for need in needs]
-        if spans_enabled():
-            count = counter("sidechain_backmap")
-            count["bwd"] += 1
-            count["rows_bwd"] += grad.shape[0]
-        return (None, None) + tuple(g if need else None for g, need in zip(grads, needs))
+            *inputs, quat, head = ctx.saved_tensors
+            grads = _sidechain_bwd(ctx.spec, inputs, quat, head, grad)
+        count_rows("sidechain_backmap", "bwd", grad.shape[0])
+        return (None,) + tuple(g if need else None for g, need in zip(grads, needs))
 
 
 def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch.Tensor,
@@ -650,12 +624,18 @@ def backmap_sidechains_fast(spec: SidechainBackmapSpec, central_distances: torch
     CUDA tensors (float32 or float64, of one device) go through one
     hand-written kernel each way; CPU tensors through the plain version
     ``_backmap_sidechains_fast_plain``, and the kernels' library is never
-    loaded; any other device or type raises. Both devices take
-    ``_SidechainBackmap`` wherever a gradient is taken, the card always;
-    the CPU without a gradient calls the plain version directly."""
+    loaded; any other device or type raises. The card takes
+    ``_SidechainBackmap`` always; the CPU takes the plain version through
+    ``_tracing.backward_in_span`` wherever a gradient is taken (autograd
+    over its saved graph), and directly without one. Either backward runs
+    under the span ``adc.backmap_backward`` and counts in the counter
+    ``sidechain_backmap``."""
     inputs = (central_distances, central_angles, central_dihedrals, side_distances,
               side_angles, side_dihedrals)
-    kernel = _build.kernel_route(inputs, "the sidechain kernels")
-    if kernel or torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
-        return _SidechainBackmap.apply(spec, kernel, *inputs)
+    if _build.kernel_route(inputs, "the sidechain kernels"):
+        return _SidechainBackmap.apply(spec, *inputs)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return backward_in_span("adc.backmap_backward", "sidechain_backmap",
+                                functools.partial(_backmap_sidechains_fast_plain, spec),
+                                *inputs)
     return _backmap_sidechains_fast_plain(spec, *inputs)

@@ -36,6 +36,9 @@ meet the JAX package's output and VJP stored in ``data/sidechain_jax.npz``
 (1e-9 in float64, within 3x JAX's float32 distance from float64 in float32);
 give the same bits twice and from the decoder's strided slices; and run
 their backward under the span ``adc.backmap_backward``, spans on or off.
+The multimer backmap at diubiquitin's widths gives autograd's gradients
+through its plain operations bit for bit, spans on or off, and launches its
+backward's one-way kernels inside that span.
 
 The data layer: featurization of a synthetic peptide on the card against
 the CPU (distances and Cartesians 1e-6 nm, angles and dihedrals 1e-5 rad,
@@ -909,6 +912,68 @@ def test_multimer_steps_on_card_match_cpu(cuda, tmp_path):
     _card_against_cpu(cuda, tmp_path, dimer_cvs(1024, device="cpu"),
                       multimer_training="homogeneous_transformation",
                       multimer_lengths=[20, 20])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_multimer_backmap_gradients_are_plain_autograds_on_card(cuda, dtype):
+    """``backmap_multimer`` on the card at diubiquitin's widths (two
+    76-residue chains, B=256): with the spans off and on, its coordinates
+    and gradients are bit for bit autograd's through its plain operations,
+    it launches the same one-way kernels (two each way a chain), with the
+    spans on every backward kernel's launch lies inside the span
+    ``adc.backmap_backward``, and the counter ``multimer_backmap`` counts one
+    call, 256 rows and two proteins each way."""
+    import importlib
+
+    from encodermap_tpu_torch.misc import profiling as P
+    from encodermap_tpu_torch.ops import _build
+
+    TB = importlib.import_module("encodermap_tpu_torch.ops.backmap")
+    lengths, B = [76, 76], 256
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def uniform(n, lo, hi):
+        return lo + (hi - lo) * torch.rand((B, n), generator=g, device=cuda, dtype=dtype)
+
+    d = uniform(454, 0.13, 0.155)
+    a, t = uniform(452, 1.6, 2.4), uniform(450, -math.pi, math.pi)
+    mats = torch.eye(4, device=cuda, dtype=dtype) + 0.3 * torch.randn(
+        (B, 1, 4, 4), generator=g, device=cuda, dtype=dtype)
+    w = torch.randn((B, 456, 3), generator=g, device=cuda, dtype=dtype)
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (a, t, mats)]
+        out = fn(lengths, d, *leaves)
+        loss = (out * w).sum() + sum(torch.sin(x).sum() for x in leaves)
+        return [out.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    want = run(TB._backmap_multimer_plain)
+    for spanned in (False, True):
+        counts, rows = dict(_build.launch_counts), dict(P.counter("multimer_backmap"))
+        with P.record_spans() if spanned else contextlib.nullcontext():
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                got = run(TB.backmap_multimer)
+                torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        moved = {k: v - counts.get(k, 0) for k, v in _build.launch_counts.items()
+                 if v != counts.get(k, 0)}
+        assert moved == {"one_way_fwd": 4, "one_way_bwd": 4}
+        counted = {k: v - rows.get(k, 0) for k, v in P.counter("multimer_backmap").items()
+                   if v != rows.get(k, 0)}
+        assert counted == ({"fwd": 1, "rows_fwd": B, "proteins": 2, "bwd": 1, "rows_bwd": B}
+                           if spanned else {})
+        if spanned:
+            events = prof.events()
+            launch = {e.id: e.time_range.start for e in events
+                      if e.device_type == torch.autograd.DeviceType.CPU
+                      and e.name.startswith("cu")}
+            bwd = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "one_way_bwd" in e.name]
+            (span_range,) = [e.time_range for e in events if e.name == "adc.backmap_backward"
+                             and e.device_type == torch.autograd.DeviceType.CPU]
+            assert len(bwd) == 4
+            assert all(span_range.start <= launch[e.id] <= span_range.end for e in bwd)
 
 
 def test_adc_steps_on_card_match_cpu(cuda, tmp_path):

@@ -18,6 +18,7 @@ checkpoints load both ways (encode to 1e-5: the pair block widens the
 first encoder product to 451 columns, summed in another order).
 """
 
+import contextlib
 import importlib
 
 import jax
@@ -85,6 +86,61 @@ def test_identity_transforms_give_the_monomer_backmaps():
                          t[:, t0:t0 + 3 * L - 3])
         np.testing.assert_allclose(got[:, at:at + 3 * L].numpy(), ref.numpy(), atol=1e-6)
         at, d0, a0, t0 = at + 3 * L, d0 + 3 * L - 1, a0 + 3 * L - 2, t0 + 3 * L - 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("spans", [False, True], ids=["spans_off", "spans_on"])
+def test_backmap_multimer_gradients_are_plain_autograds_with_spans_on_or_off(dtype, spans):
+    """``backmap_multimer`` wherever a gradient is taken (its backward in
+    the span ``adc.backmap_backward``, one route whatever the spans): the
+    coordinates and every gradient bit for bit those of autograd through
+    its plain operations, with the decoded angles, dihedrals and
+    transforms used again outside it, as the losses use them; the span
+    opens once a backward with the spans on, and the counter
+    ``multimer_backmap`` counts one call, its rows and its proteins each
+    way, and nothing with the spans off."""
+    from encodermap_tpu_torch.misc import profiling as P
+
+    rng = np.random.default_rng(5)
+    d, a, t = (torch.tensor(x, dtype=dtype) for x in _internals(rng, 6))
+    mats = torch.tensor(_rigid(rng, 6, len(LENGTHS) - 1), dtype=dtype)
+    w = torch.tensor(rng.normal(size=(6, 27, 3)), dtype=dtype)
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (a, t, mats)]
+        out = fn(LENGTHS, d, *leaves)
+        loss = (out * w).sum() + sum(torch.sin(x).sum() for x in leaves)
+        return [out.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    plain = run(TB._backmap_multimer_plain)
+    totals, count = P.span_totals(), dict(P.counter("multimer_backmap"))
+    with P.record_spans() if spans else contextlib.nullcontext():
+        got = run(TB.backmap_multimer)
+    for x, y in zip(got, plain):
+        assert x.dtype == dtype and torch.equal(x, y)
+    opened = P.span_totals().get("adc.backmap_backward", P.SpanTotal(0, 0.0, 0.0)).count \
+        - totals.get("adc.backmap_backward", P.SpanTotal(0, 0.0, 0.0)).count
+    moved = {k: v - count.get(k, 0) for k, v in P.counter("multimer_backmap").items()
+             if v != count.get(k, 0)}
+    assert opened == int(spans)
+    assert moved == ({"fwd": 1, "rows_fwd": 6, "proteins": 2, "bwd": 1, "rows_bwd": 6}
+                     if spans else {})
+
+
+def test_backmap_multimer_without_a_gradient_is_the_plain_call():
+    """No gradient taken: the plain operations themselves, no autograd
+    node, nothing counted even with the spans on."""
+    from encodermap_tpu_torch.misc import profiling as P
+
+    rng = np.random.default_rng(6)
+    d, a, t = map(torch.tensor, _internals(rng, 3))
+    mats = torch.tensor(_rigid(rng, 3, len(LENGTHS) - 1), requires_grad=True)
+    count = dict(P.counter("multimer_backmap"))
+    with P.record_spans(), torch.no_grad():
+        out = TB.backmap_multimer(LENGTHS, d, a, t, mats)
+    assert out.grad_fn is None
+    assert torch.equal(out, TB._backmap_multimer_plain(LENGTHS, d, a, t, mats.detach()))
+    assert dict(P.counter("multimer_backmap")) == count
 
 
 def test_helpers_match_jax():

@@ -75,11 +75,30 @@ def _sidechains(tmp_path, steps=STEPS):
                                                 device="cpu")
 
 
-MODELS = {"general": _emap, "fused": _fused, "adc": _adc, "sidechains": _sidechains}
+def _multimer(tmp_path, steps=STEPS):
+    """A multimer ADC on a dimer of unequal chains made from a seed."""
+    from chip_smoke import dimer_cvs
+
+    ap = emt.ADCParameters(main_path=str(tmp_path / "multimer"), n_steps=steps,
+                           steps_per_scan=CHUNK, batch_size=ROWS, n_neurons=[16, 16, 2],
+                           multimer_training="homogeneous_transformation",
+                           multimer_lengths=[6, 5], cartesian_pwd_start=1,
+                           cartesian_pwd_step=3, use_backbone_angles=True,
+                           use_sidechains=True)
+    return emt.AngleDihedralCartesianEncoderMap(dimer_cvs(128, (6, 5), seed=2, device="cpu"),
+                                                ap, device="cpu")
+
+
+MODELS = {"general": _emap, "fused": _fused, "adc": _adc, "sidechains": _sidechains,
+          "multimer": _multimer}
 
 
 def _side_count() -> dict:
     return dict(P.counter("sidechain_backmap"))
+
+
+def _multimer_count() -> dict:
+    return dict(P.counter("multimer_backmap"))
 
 
 def _window(fn):
@@ -104,7 +123,7 @@ def _window(fn):
 
 # ------------------------------------------------------------------- off
 @pytest.mark.parametrize("profiler", [False, True], ids=["plain", "under_profiler"])
-@pytest.mark.parametrize("model", ["general", "adc", "sidechains"])
+@pytest.mark.parametrize("model", ["general", "adc", "sidechains", "multimer"])
 def test_spans_off_record_nothing_and_enter_no_record_function(tmp_path, monkeypatch,
                                                                model, profiler):
     def refuse(*a, **k):
@@ -113,7 +132,7 @@ def test_spans_off_record_nothing_and_enter_no_record_function(tmp_path, monkeyp
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     emap = MODELS[model](tmp_path)
     assert not P.spans_enabled()
-    before, count = P.span_totals(), _side_count()
+    before, count, multimer = P.span_totals(), _side_count(), _multimer_count()
     if profiler:
         from torch.profiler import ProfilerActivity, profile
 
@@ -126,25 +145,30 @@ def test_spans_off_record_nothing_and_enter_no_record_function(tmp_path, monkeyp
         emap.train()
     assert emap.state.step == STEPS
     assert P.span_totals() == before
-    assert _side_count() == count
+    assert _side_count() == count and _multimer_count() == multimer
     assert P.span("train.chunk") is P.span("step.forward")  # the shared null context
 
 
 # -------------------------------------------------------------------- on
-@pytest.mark.parametrize("model", ["general", "fused", "adc", "sidechains"])
+@pytest.mark.parametrize("model", ["general", "fused", "adc", "sidechains", "multimer"])
 def test_spans_on_mark_every_layer_once_per_step_or_chunk(tmp_path, model):
     emap = MODELS[model](tmp_path)
-    count = _side_count()
+    count, multimer = _side_count(), _multimer_count()
     got = _window(emap.train)
     moved = {k: v - count.get(k, 0) for k, v in _side_count().items() if v != count.get(k, 0)}
+    moved_multimer = {k: v - multimer.get(k, 0) for k, v in _multimer_count().items()
+                      if v != multimer.get(k, 0)}
     chunks = STEPS // CHUNK
     per_step = {"fused": {"trainer.draw", "trainer.launch"},
                 "general": {"trainer.step"} | STEP,
                 "adc": {"trainer.step"} | STEP | ADC,
-                "sidechains": {"trainer.step"} | STEP | ADC | SIDE}[model]
-    # the sidechain backmap's calls and rows, forward and backward, a step
-    assert moved == ({"fwd": STEPS, "rows_fwd": STEPS * ROWS, "bwd": STEPS,
-                      "rows_bwd": STEPS * ROWS} if model == "sidechains" else {})
+                "sidechains": {"trainer.step"} | STEP | ADC | SIDE,
+                "multimer": {"trainer.step"} | STEP | ADC | SIDE}[model]
+    # the sidechain or multimer backmap's calls and rows, forward and
+    # backward, a step (and the multimer's two proteins a call)
+    rows = {"fwd": STEPS, "rows_fwd": STEPS * ROWS, "bwd": STEPS, "rows_bwd": STEPS * ROWS}
+    assert moved == (rows if model == "sidechains" else {})
+    assert moved_multimer == ({**rows, "proteins": 2 * STEPS} if model == "multimer" else {})
     assert set(got) == TRAIN | per_step
     for name, tot in got.items():
         if name in ("train.upload", "train.persist"):
@@ -249,6 +273,39 @@ def test_trace_nests_the_sidechain_backward_under_the_step_backward(tmp_path):
     inside = [e for e in by.get("aten::cumsum", []) + by.get("aten::mul", [])
               if _within(e, by["adc.backmap_backward"])]
     assert inside
+
+
+def test_trace_nests_the_multimer_backward_under_the_step_backward(tmp_path):
+    """One ``adc.backmap_backward`` a step of multimer training, inside that
+    step's ``step.backward``, with the backward of both chains' one-way
+    scans and of the placement product inside it."""
+    emap = _multimer(tmp_path)
+    with P.trace(tmp_path / "profile", device="cpu"):
+        emap.train()
+    by = {}
+    for e in _trace_events(tmp_path / "profile"):
+        by.setdefault(e["name"], []).append(e)
+    assert len(by["adc.backmap_backward"]) == len(by["step.backward"]) == STEPS
+    assert all(_within(e, by["step.backward"]) for e in by["adc.backmap_backward"])
+    for name in ("_OneWayBackward", "UnsafeViewBackward0", "BmmBackward0"):
+        inside = [e for e in by.get(name, []) if _within(e, by["adc.backmap_backward"])]
+        assert len(inside) >= (4 * STEPS if name == "_OneWayBackward" else STEPS), name
+
+
+def test_multimer_training_with_spans_on_equals_training_with_them_off(tmp_path):
+    """A multimer ADC trained with the spans on ends bit for bit where one
+    trained with them off ends: the backmap's backward takes one route
+    whatever the spans."""
+    def train(name):
+        emap = _multimer(tmp_path / name)
+        emap.train()
+        return [t.clone() for t in torch.utils._pytree.tree_leaves(emap.state.params)]
+
+    off = train("off")
+    with P.record_spans():
+        on = train("on")
+    assert len(on) == len(off)
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
 
 
 def test_profile_steps_traces_the_spans(tmp_path):
